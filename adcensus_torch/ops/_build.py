@@ -39,6 +39,7 @@ SIGNATURES = {
                  _F, _F, _F, _F, _F, _F, _I, _P),
     "region_vote": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ray_interp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "band_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 # Kernel launches since the last reset, by kernel name. Only launch()
@@ -55,13 +56,15 @@ def reset_launches() -> None:
 
 
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
+    """The CUDA toolkit's nvcc: /usr/local/cuda/bin/nvcc, else the first
+    on PATH."""
+    cand = Path("/usr/local/cuda/bin/nvcc")
     if cand.exists():
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or add it to PATH")
+        raise RuntimeError("nvcc not found: install the CUDA toolkit in "
+                           "/usr/local/cuda or add nvcc to PATH")
     return found
 
 

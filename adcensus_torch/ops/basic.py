@@ -25,6 +25,27 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+CROSS_BACKENDS = ("roll", "matmul")
+AGG_IMPLS = (None, "banded", "skip")
+
+
+def check_cross_options(cross_backend: str, agg_impl=None) -> None:
+    """Raise ValueError unless ``cross_backend`` is "roll" (kernels B1/B3,
+    bitwise in the reference's summation order) or "matmul" (band
+    matrices), and ``agg_impl`` is None (dense band matrices), "banded"
+    (kernel B5) or "skip" (no aggregation, an ablation). These replace the
+    JAX package's ``use_pallas`` string modes and ``ADC_AGG_IMPL``."""
+    if cross_backend not in CROSS_BACKENDS:
+        raise ValueError(
+            f"unknown cross_backend {cross_backend!r}; expected one of "
+            f"{CROSS_BACKENDS}"
+        )
+    if agg_impl not in AGG_IMPLS:
+        raise ValueError(
+            f"unknown agg_impl {agg_impl!r}; expected one of {AGG_IMPLS}"
+        )
+
+
 def kernels_for(t: torch.Tensor) -> bool:
     """Route of a kernel wrapper: True for a CUDA tensor (launch the
     kernel), False for a CPU tensor (run the plain version)."""

@@ -5,7 +5,9 @@ Port of ``adcensus_tpu/ops/region_vote_pallas.py``. For every pixel, the
 horizontal-first cross support region (multistep_refiner.cpp:183-197).
 ``region_vote_stats`` launches ``csrc/region_vote.cu`` for a CUDA tensor
 and runs ``region_vote_stats_plain`` (the one-hot branch of the JAX
-``region_vote_stats``) for a CPU tensor. Ties go to the lowest d.
+``region_vote_stats``) for a CPU tensor. Ties go to the lowest d. With
+``cross_backend="matmul"`` it computes the same statistics by band
+matrices (``ops/cross_matmul.py``) on either device instead.
 """
 from __future__ import annotations
 
@@ -14,7 +16,8 @@ from typing import Tuple
 import torch
 
 from adcensus_torch.ops import _build
-from adcensus_torch.ops.basic import kernels_for
+from adcensus_torch.ops.basic import check_cross_options, kernels_for
+from adcensus_torch.ops.cross_matmul import region_vote_stats_matmul
 from adcensus_torch.ops.cross_sum import cross_pass_plain
 
 
@@ -50,12 +53,17 @@ def region_vote_stats(
     arms: torch.Tensor,
     d_range: int,
     max_arm: int,
+    cross_backend: str = "roll",
+    masks=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(best_index, max_ht, count), each (H, W) int32.
 
     di: (H, W) int32 rounded disparity indices in [0, d_range); valid:
-    (H, W) bool; arms: (H, W, 4) int32.
+    (H, W) bool; arms: (H, W, 4) int32. ``masks`` are prebuilt band
+    matrices (``cross_matmul.vote_band_masks``) for the matmul backend.
+    All backends give the same statistics bit for bit.
     """
+    check_cross_options(cross_backend)
     h, w = di.shape
     for name, t, dtype, shape in (
         ("di", di, torch.int32, (h, w)),
@@ -63,6 +71,9 @@ def region_vote_stats(
         ("arms", arms, torch.int32, (h, w, 4)),
     ):
         _build.check(name, t, dtype, shape, di.device)
+    if cross_backend == "matmul":
+        return region_vote_stats_matmul(di, valid, arms, d_range, max_arm,
+                                        masks=masks)
     if not kernels_for(di):
         return region_vote_stats_plain(di, valid, arms, d_range, max_arm)
     out = torch.empty((3, h, w), dtype=torch.int32, device=di.device)

@@ -5,6 +5,13 @@ ADCensusStereo.cpp:69-132): cost init -> cross aggregation -> 4-direction
 scanline -> left/right WTA -> multi-step refinement, run eagerly on the
 device the images lie on. The batched and mixed-shape entry points are not
 ported yet.
+
+Every entry point takes ``cross_backend`` ("roll", the default: kernels
+B1/B3, bitwise in the reference's order; or "matmul": band matrices for
+aggregation and voting) and ``agg_impl`` (None: dense band matrices;
+"banded": kernel B5 where it fits; "skip": no aggregation), in place of
+the JAX package's ``use_pallas`` modes and ``ADC_AGG_IMPL``. The scanline
+and interpolation kernels (B2, B4) run on CUDA with either backend.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ import numpy as np
 import torch
 
 from adcensus_torch.config import ADCensusOptions
-from adcensus_torch.ops.basic import resolve_device
+from adcensus_torch.ops.basic import check_cross_options, resolve_device
 from adcensus_torch.stages import aggregate as agg_stage
 from adcensus_torch.stages import arms as arms_stage
 from adcensus_torch.stages import cost as cost_stage
@@ -30,23 +37,29 @@ def match_core(
     gray_r: torch.Tensor,
     opts: ADCensusOptions,
     return_intermediates: bool = False,
+    cross_backend: str = "roll",
+    agg_impl: Optional[str] = None,
 ) -> Dict[str, torch.Tensor]:
     """Full pipeline on (H, W, 3) uint8 RGB tensors; gray images are
     supplied separately so callers can choose the exact-parity host path.
     Returns the JAX package's keys: "disparity", and with
     ``return_intermediates`` the stage outputs."""
+    check_cross_options(cross_backend, agg_impl)
     census_l = cost_stage.census_transform_9x7(gray_l)
     census_r = cost_stage.census_transform_9x7(gray_r)
     cost_init = cost_stage.compute_cost_volume(
         left, right, census_l, census_r, opts
     )
     arms = arms_stage.build_arms(left, opts)
-    cost_aggr = agg_stage.aggregate(cost_init, arms, opts)
+    cost_aggr = agg_stage.aggregate(
+        cost_init, arms, opts, cross_backend=cross_backend, agg_impl=agg_impl
+    )
     cost_scan = scan_stage.scanline_optimize(cost_aggr, left, right, opts)
     disp_left = wta_stage.wta_left(cost_scan, opts)
     disp_right = wta_stage.wta_right(cost_scan, opts)
     refined = refine_stage.multistep_refine(
-        disp_left, disp_right, left, cost_scan, arms, opts
+        disp_left, disp_right, left, cost_scan, arms, opts,
+        cross_backend=cross_backend,
     )
     out = {"disparity": refined["final"]}
     if return_intermediates:
@@ -67,6 +80,8 @@ def match_device(
     right,
     opts: Optional[ADCensusOptions] = None,
     device="cuda",
+    cross_backend: str = "roll",
+    agg_impl: Optional[str] = None,
 ) -> torch.Tensor:
     """One pair, gray conversion on the device: (H, W, 3) uint8 images
     (tensors or arrays) -> (H, W) float32 disparity tensor on ``device``,
@@ -79,7 +94,9 @@ def match_device(
     validate_inputs(left, right, opts)
     gray_l = cost_stage.compute_gray(left)
     gray_r = cost_stage.compute_gray(right)
-    return match_core(left, right, gray_l, gray_r, opts)["disparity"]
+    return match_core(left, right, gray_l, gray_r, opts,
+                      cross_backend=cross_backend,
+                      agg_impl=agg_impl)["disparity"]
 
 
 def validate_inputs(left, right, opts: ADCensusOptions) -> None:
@@ -113,6 +130,8 @@ def match(
     gray_mode: str = "device",
     return_intermediates: bool = False,
     device="cuda",
+    cross_backend: str = "roll",
+    agg_impl: Optional[str] = None,
 ) -> Dict[str, np.ndarray]:
     """Host-facing entry point: numpy images in, numpy arrays out.
 
@@ -136,5 +155,6 @@ def match(
     else:
         gray_l = cost_stage.compute_gray(left_t)
         gray_r = cost_stage.compute_gray(right_t)
-    res = match_core(left_t, right_t, gray_l, gray_r, opts, return_intermediates)
+    res = match_core(left_t, right_t, gray_l, gray_r, opts,
+                     return_intermediates, cross_backend, agg_impl)
     return {k: v.cpu().numpy() for k, v in res.items()}

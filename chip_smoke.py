@@ -7,17 +7,24 @@ CUDA card, ``nvidia-smi`` and ``nvcc`` (the kernels are built from
 imports nothing of JAX. Phases, each raising on failure:
 
 1. device: the card's name and power limit;
-2. build: the four CUDA kernels, timed;
+2. build: the five CUDA kernels, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes and on the main path's own inputs, bitwise,
-   timed with CUDA events beside its bound;
+   the shapes of the path that runs it and on that path's own inputs,
+   bitwise, timed with CUDA events beside its bound (and, for B5, one
+   PyTorch library call of the same function); one dense band-matrix
+   aggregation iteration beside B1, not bitwise;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
-   d in [0, 64) and default options (the Middlebury Cone size), with the
-   launch counts of one match, the match time, bitwise equality with the
-   plain-version pipeline on the same card, and bad-2.0 against the
-   scene's ground truth;
-5. stages: where one match's time goes, stage by stage (CUDA events),
-   and the device's busy time and heaviest kernels (torch.profiler).
+   d in [0, 64) and default options (the Middlebury Cone size, the roll
+   backend), with the launch counts of one match, the match time, bitwise
+   equality with the plain-version pipeline on the same card, and bad-2.0
+   against the scene's ground truth;
+5. stages: where one main-path match's time goes, stage by stage (CUDA
+   events), and the device's busy time and heaviest kernels
+   (torch.profiler);
+6. backends: the same match with ``cross_backend="matmul"``, dense
+   (``[matmul]``) and with kernel B5 (``[banded]``), each held as in
+   phase 4, with its stages and profile as in phase 5, and compared with
+   the main path's disparity.
 
 The last two lines of its output are a JSON object of per-kernel numbers
 and ``{"ok": true, "device": {...}}``.
@@ -36,27 +43,47 @@ H, W, MAX_D = 375, 450, 64
 D_BG, D_FG, SEED = 16, 32, 0
 KERNEL_RUNS = 10
 MATCH_RUNS = 7
-MEM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
-SCALAR_OPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
+SCALAR_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
+TENSOR_BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 BAD2_LIMIT_PCT = 10.0
 
-KERNELS = {  # name -> (source, TPU kernel it replaces)
+KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it)
     "cross_sum": ("adcensus_torch/csrc/cross_sum.cu",
-                  "adcensus_tpu/ops/cross_sum_pallas.py:77"),
+                  "adcensus_tpu/ops/cross_sum_pallas.py:77", "main"),
     "scanline": ("adcensus_torch/csrc/scanline.cu",
-                 "adcensus_tpu/ops/scanline_pallas.py:75"),
+                 "adcensus_tpu/ops/scanline_pallas.py:75", "main"),
     "region_vote": ("adcensus_torch/csrc/region_vote.cu",
-                    "adcensus_tpu/ops/region_vote_pallas.py:47"),
+                    "adcensus_tpu/ops/region_vote_pallas.py:47", "main"),
     "ray_interp": ("adcensus_torch/csrc/ray_interp.cu",
-                   "adcensus_tpu/ops/interp_pallas.py:56"),
+                   "adcensus_tpu/ops/interp_pallas.py:56", "main"),
+    "band_mm": ("adcensus_torch/csrc/band_mm.cu",
+                "adcensus_tpu/ops/band_mm_pallas.py:132", "banded"),
+}
+# B5's work is the TPU kernel's bf16 products, which the card can run on
+# its tensor cores: its bound counts operations at that rate
+OPS_PER_S = {"band_mm": TENSOR_BF16_OPS_PER_S}
+
+# path -> (cross_backend, agg_impl, launches one match must show: a count,
+# or None for at least one)
+PATHS = {
+    "main": ("roll", None, {"cross_sum": None, "scanline": None,
+                            "region_vote": None, "ray_interp": None,
+                            "band_mm": 0}),
+    "matmul": ("matmul", None, {"cross_sum": 0, "region_vote": 0,
+                                "band_mm": 0, "scanline": 4,
+                                "ray_interp": 2}),
+    "banded": ("matmul", "banded", {"cross_sum": 0, "region_vote": 0,
+                                    "band_mm": 8, "scanline": 4,
+                                    "ray_interp": 2}),
 }
 
 
-def bound_ms(n_bytes: float, n_ops: float):
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
     """Least time for the work: bytes over the memory rate or operations
-    over the scalar rate, whichever is larger."""
+    over ``ops_per_s``, whichever is larger."""
     t_bytes = n_bytes / MEM_BYTES_PER_S
-    t_ops = n_ops / SCALAR_OPS_PER_S
+    t_ops = n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -96,11 +123,31 @@ def plain_versions():
     """Context that routes every kernel wrapper to its plain version, so
     the whole pipeline can run on the card without the kernels."""
     stack = ExitStack()
-    for mod in ("cross_sum", "scanline", "region_vote", "interp"):
+    for mod in ("cross_sum", "scanline", "region_vote", "interp", "band_mm"):
         stack.enter_context(mock.patch(
             f"adcensus_torch.ops.{mod}.kernels_for", lambda t: False
         ))
     return stack
+
+
+def band_pass_library(torch, vol_m, mask, pad):
+    """Kernel B5's function as PyTorch library calls, the yardstick of its
+    ``library_ms`` (the port never calls it): the bfloat16 hi/lo split,
+    one float32 einsum per split term over the unfolded 256-column
+    windows, and their sum."""
+    nb = 256
+    dp, np_, _ = vol_m.shape
+    wk, mp = mask.shape[1], mask.shape[2]
+    n_ob = -(-mp // nb)
+    m = torch.nn.functional.pad(mask.float(), (0, n_ob * nb - mp))
+    m = m.view(np_, wk, n_ob, nb)
+    hi = vol_m.to(torch.bfloat16).float()
+    lo = (vol_m - hi).to(torch.bfloat16).float()
+    sums = [
+        torch.einsum("dnbk,nkbj->dnbj", part.unfold(2, wk, nb), m)
+        for part in (hi, lo)
+    ]
+    return (sums[0] + sums[1]).reshape(dp, np_, n_ob * nb)[..., :mp]
 
 
 def ray_steps(torch, disp, target, offsets):
@@ -125,8 +172,13 @@ def ray_steps(torch, disp, target, offsets):
 
 def kernel_cases(torch, inter, left, opts):
     """Per kernel: the calls one match makes, as (label, kernel call,
-    plain call, bytes, operations), on the main path's own inputs."""
-    from adcensus_torch.ops import cross_sum, interp, region_vote, scanline
+    plain call, library call or None, bytes, operations), on the inputs
+    of the path that runs it. B5's are the [banded] path's: the Cone-size
+    cost_init padded as aggregate_banded pads it, and masks from the
+    path's own arms."""
+    from adcensus_torch.ops import (
+        band_mm, cross_sum, interp, region_vote, scanline,
+    )
     from adcensus_torch.stages import aggregate, refine
     from adcensus_torch.stages import scanline as scan_stage
 
@@ -138,8 +190,7 @@ def kernel_cases(torch, inter, left, opts):
     ext = (arms[..., 0] + arms[..., 1] + 1).sum() + (
         arms[..., 2] + arms[..., 3] + 1
     ).sum()
-    cases = {"cross_sum": [], "scanline": [], "region_vote": [],
-             "ray_interp": []}
+    cases = {name: [] for name in KERNELS}
 
     vol = inter["cost_init"]
     for hf, sup in ((True, sup_h), (False, sup_v)):
@@ -147,7 +198,7 @@ def kernel_cases(torch, inter, left, opts):
         cases["cross_sum"].append((
             f"{'horizontal' if hf else 'vertical'}-first",
             lambda a=args: cross_sum.cross_pass(*a),
-            lambda a=args: cross_sum.cross_pass_plain(*a),
+            lambda a=args: cross_sum.cross_pass_plain(*a), None,
             dhw * 8 + hw * 20, d * (int(ext) + hw),
         ))
 
@@ -161,7 +212,7 @@ def kernel_cases(torch, inter, left, opts):
         cases["scanline"].append((
             f"{axis} {'forward' if fwd else 'backward'}",
             lambda a=args: scanline.scanline_pass(*a),
-            lambda a=args: scanline.scanline_pass_plain(*a),
+            lambda a=args: scanline.scanline_pass_plain(*a), None,
             dhw * 9 + len(flags) * 4, dhw * 9,
         ))
 
@@ -172,7 +223,7 @@ def kernel_cases(torch, inter, left, opts):
     cases["region_vote"].append((
         "first phase",
         lambda a=args: region_vote.region_vote_stats(*a),
-        lambda a=args: region_vote.region_vote_stats_plain(*a),
+        lambda a=args: region_vote.region_vote_stats_plain(*a), None,
         hw * 33, cells + 2 * d * hw,
     ))
 
@@ -195,10 +246,130 @@ def kernel_cases(torch, inter, left, opts):
         cases["ray_interp"].append((
             f"{label} ({int(target.sum())} targets)",
             lambda a=args: interp.ray_interp(*a),
-            lambda a=args: interp.ray_interp_plain(*a),
+            lambda a=args: interp.ray_interp_plain(*a), None,
             hw * 13 + offsets.numel() * 4, steps * 4,
         ))
+
+    dp, hp, wp = band_mm.padded_dims(d, h, w)
+    masks = band_mm.make_blocked_masks(arms, max_arm, hp, wp)
+    vol = torch.nn.functional.pad(
+        inter["cost_init"], (0, wp - w, 0, hp - h, 0, dp - d)
+    )
+    for label, vm, mask, pad in (
+        ("horizontal", band_mm.with_margins(vol, wp, masks.pad_w),
+         masks.mh, masks.pad_w),
+        ("vertical", band_mm.with_margins(
+            vol.transpose(1, 2).contiguous(), hp, masks.pad_h),
+         masks.mv, masks.pad_h),
+    ):
+        args = (vm, mask, pad)
+        n_out = dp * mask.shape[0] * mask.shape[2]
+        cases["band_mm"].append((
+            f"{label} pass",
+            lambda a=args: band_mm.band_pass(*a),
+            lambda a=args: band_mm.band_pass_plain(*a),
+            lambda a=args: band_pass_library(torch, *a),
+            mask.numel() + vm.numel() * 4 + n_out * 4,
+            4 * mask.shape[1] * n_out,  # 2 parts x (multiply, add)
+        ))
     return cases
+
+
+def dense_matmul_note(torch, inter, opts):
+    """CUDA-event ms of one dense cross_pass_matmul iteration per
+    direction on the main path's cost_init (band matrices prebuilt, as
+    aggregate builds them once), and its largest difference from B1's
+    result. Not bitwise: the sums run in the matrix product's order."""
+    from adcensus_torch.ops import cross_matmul, cross_sum
+    from adcensus_torch.stages import aggregate
+
+    vol, arms = inter["cost_init"], inter["arms"]
+    max_arm = min(opts.cross_L1, 255)
+    sup_h, sup_v = (s.float() for s in aggregate.support_counts(arms, max_arm))
+    masks = cross_matmul.band_masks(arms, max_arm)
+    out = []
+    for hf, sup in ((True, sup_h), (False, sup_v)):
+        args = (vol, arms, sup, hf, max_arm)
+        dense = cross_matmul.cross_pass_matmul(*args, masks=masks)
+        err = float((dense - cross_sum.cross_pass(*args)).abs().max())
+        ms = time_ms(torch, lambda a=args: cross_matmul.cross_pass_matmul(
+            *a, masks=masks))
+        out.append((hf, ms, err))
+    return out
+
+
+def check_launches(tag: str, launches: dict) -> None:
+    """Raise unless one match on path ``tag`` launched what PATHS says."""
+    for name, want in PATHS[tag][2].items():
+        got = launches[name]
+        if (got == 0) if want is None else (got != want):
+            raise AssertionError(
+                f"[{tag}] launched {name} {got} times in one match, "
+                f"expected {'at least one' if want is None else want}"
+            )
+
+
+def drive_path(torch, tag, left, right, opts, dev, gt):
+    """One path of ``match_device``: launches of one match (counts reset
+    just before and read just after), the median host-clock ms of
+    MATCH_RUNS matches, determinism, bitwise equality with the same
+    backend's plain-version pipeline, and bad-2.0 < BAD2_LIMIT_PCT."""
+    import numpy as np
+
+    from adcensus_torch.ops import _build
+    from adcensus_torch.stages import pipeline
+    from adcensus_torch.synthetic import bad_pct
+
+    cross_backend, agg_impl, _ = PATHS[tag]
+    kwargs = dict(device=dev, cross_backend=cross_backend, agg_impl=agg_impl)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    disp = pipeline.match_device(left, right, opts, **kwargs)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    check_launches(tag, launches)
+
+    times = []
+    for _ in range(MATCH_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline.match_device(left, right, opts, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not torch.equal(out.view(torch.int32), disp.view(torch.int32)):
+        raise AssertionError(f"[{tag}] match_device is not deterministic")
+    with plain_versions():
+        _build.reset_launches()
+        plain_disp = pipeline.match_device(left, right, opts, **kwargs)
+        torch.cuda.synchronize()
+        if any(_build.launches.values()):
+            raise AssertionError(f"[{tag}] the plain pipeline launched a "
+                                 "kernel")
+    if not torch.equal(disp.view(torch.int32), plain_disp.view(torch.int32)):
+        n = int((disp != plain_disp).sum())
+        raise AssertionError(
+            f"[{tag}] kernel and plain pipelines differ at {n} px"
+        )
+    disp_np = disp.cpu().numpy()
+    if disp_np.shape != (H, W) or disp_np.dtype != np.float32:
+        raise AssertionError(
+            f"[{tag}] bad output {disp_np.shape} {disp_np.dtype}"
+        )
+    density = float(np.isfinite(disp_np).mean()) * 100.0
+    bad2 = bad_pct(disp_np, gt, 2.0)
+    if not density > 0.0:
+        raise AssertionError(f"[{tag}] no valid disparity")
+    if not bad2 < BAD2_LIMIT_PCT:
+        raise AssertionError(f"[{tag}] bad-2.0 {bad2} % >= {BAD2_LIMIT_PCT} %")
+    ms = statistics.median(times)
+    print(f"[{tag}] launches in one match: {launches}")
+    print(f"[{tag}] match_device {H}x{W} d=[0,{MAX_D}) cross_backend="
+          f"{cross_backend!r} agg_impl={agg_impl!r}: median {ms:.3f} ms of "
+          f"{MATCH_RUNS} (min {min(times):.3f}, max {max(times):.3f}), "
+          f"{H * W * MAX_D / ms / 1e3:.1f} Mpix*disp/s; density "
+          f"{density:.2f} %, bad-2.0 {bad2:.3f} %; equals the plain "
+          "pipeline bitwise")
+    return disp, launches, ms
 
 
 def main() -> int:
@@ -208,14 +379,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    import numpy as np
 
     from adcensus_torch.config import ADCensusOptions
     from adcensus_torch.ops import _build
     from adcensus_torch.stages import cost as cost_stage
     from adcensus_torch.stages import pipeline
     from adcensus_torch.stages import refine
-    from adcensus_torch.synthetic import bad_pct, two_layer_pair
+    from adcensus_torch.synthetic import two_layer_pair
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -232,14 +402,14 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     _build.build()
-    print(f"[build] 4 kernels in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {len(KERNELS)} kernels in {time.perf_counter() - t0:.1f} s")
 
     opts = ADCensusOptions(max_disparity=MAX_D)
     left_np, right_np, gt = two_layer_pair(H, W, D_BG, D_FG, seed=SEED)
     left = torch.as_tensor(left_np, device=dev)
     right = torch.as_tensor(right_np, device=dev)
 
-    # 3. kernels against their plain versions, on the main path's inputs
+    # 3. kernels against their plain versions, on their paths' inputs
     inter = pipeline.match_core(
         left, right, cost_stage.compute_gray(left),
         cost_stage.compute_gray(right), opts, return_intermediates=True,
@@ -250,100 +420,86 @@ def main() -> int:
     )
     results = {}
     for name, cases in kernel_cases(torch, inter, left, opts).items():
-        errs, ks, ps, bs, bound_kinds = [], [], [], [], []
-        for label, kern, plain, n_bytes, n_ops in cases:
+        errs, ks, ps, ls, bs, bound_kinds = [], [], [], [], [], []
+        for label, kern, plain, library, n_bytes, n_ops in cases:
             out_k, out_p = kern(), plain()
             outs = (out_k, out_p) if isinstance(out_k, tuple) else (
                 (out_k,), (out_p,))
             errs += [max_abs_err(torch, a, b) for a, b in zip(*outs)]
             k_ms = time_ms(torch, kern)
             p_ms = time_ms(torch, plain)
-            b_ms, b_kind = bound_ms(n_bytes, n_ops)
+            b_ms, b_kind = bound_ms(n_bytes, n_ops,
+                                    OPS_PER_S.get(name, SCALAR_OPS_PER_S))
             ks.append(k_ms)
             ps.append(p_ms)
             bs.append(b_ms)
             bound_kinds.append(b_kind)
+            lib_note = ""
+            if library is not None:
+                lib_err = float((library() - out_k).abs().max())
+                if not lib_err <= 1e-4:
+                    raise AssertionError(
+                        f"{name} {label}: the library call differs by "
+                        f"{lib_err}"
+                    )
+                ls.append(time_ms(torch, library))
+                lib_note = (f", library {ls[-1]:.4f} ms (max |diff| "
+                            f"{lib_err:.3g})")
             print(f"[kernel] {name} {label}: {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_kind}); bitwise")
+                  f"{p_ms:.4f} ms{lib_note}, bound {b_ms:.4f} ms "
+                  f"({b_kind}, {n_bytes / 1e6:.1f} MB, "
+                  f"{n_ops / 1e9:.2f} G operations); bitwise")
         results[name] = {
             "max_abs_err": max(errs),
             "ms": statistics.mean(ks),
             "plain_ms": statistics.mean(ps),
+            "library_ms": statistics.mean(ls) if ls else None,
             "bound_ms": statistics.mean(bs),
             "bound_by": max(set(bound_kinds), key=bound_kinds.count),
         }
+    for hf, ms, err in dense_matmul_note(torch, inter, opts):
+        print(f"[note] dense cross_pass_matmul, "
+              f"{'horizontal' if hf else 'vertical'}-first: {ms:.4f} ms "
+              f"per iteration, not bitwise (max |diff| vs B1 {err:.3g})")
+    del inter
 
     # 4. main path
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    disp = pipeline.match_device(left, right, opts, device=dev)
-    torch.cuda.synchronize()
-    launches = dict(_build.launches)
-    for name in KERNELS:
-        if launches[name] == 0:
-            raise AssertionError(f"the main path never launched {name}")
-    print(f"[main] launches in one match: {launches}")
-
-    times = []
-    for _ in range(MATCH_RUNS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = pipeline.match_device(left, right, opts, device=dev)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    if not torch.equal(out.view(torch.int32), disp.view(torch.int32)):
-        raise AssertionError("match_device is not deterministic")
-    with plain_versions():
-        _build.reset_launches()
-        plain_disp = pipeline.match_device(left, right, opts, device=dev)
-        torch.cuda.synchronize()
-        if any(_build.launches.values()):
-            raise AssertionError("the plain pipeline launched a kernel")
-    if not torch.equal(disp.view(torch.int32), plain_disp.view(torch.int32)):
-        n = int((disp != plain_disp).sum())
-        raise AssertionError(f"kernel and plain pipelines differ at {n} px")
-    disp_np = disp.cpu().numpy()
-    if disp_np.shape != (H, W) or disp_np.dtype != np.float32:
-        raise AssertionError(f"bad output {disp_np.shape} {disp_np.dtype}")
-    density = float(np.isfinite(disp_np).mean()) * 100.0
-    bad2 = bad_pct(disp_np, gt, 2.0)
-    if not density > 0.0:
-        raise AssertionError("no valid disparity")
-    if not bad2 < BAD2_LIMIT_PCT:
-        raise AssertionError(f"bad-2.0 {bad2} % >= {BAD2_LIMIT_PCT} %")
-    ms = statistics.median(times)
-    print(f"[main] match_device {H}x{W} d=[0,{MAX_D}): median {ms:.3f} ms "
-          f"of {MATCH_RUNS} (min {min(times):.3f}, max {max(times):.3f}), "
-          f"{H * W * MAX_D / ms / 1e3:.1f} Mpix*disp/s; density "
-          f"{density:.2f} %, bad-2.0 {bad2:.3f} %; equals the plain "
-          f"pipeline bitwise; card {card}")
+    disp, launches, ms = drive_path(torch, "main", left, right, opts, dev, gt)
+    path_launches = {"main": launches}
+    print(f"[main] card {card}")
 
     # 5. where one match's time goes
-    stage_ms = stage_breakdown(torch, left, right, opts, disp)
-    print("[stages] " + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
-    prof = device_profile(torch, left, right, opts, dev)
-    if prof is None:
-        print("[profile] not measured: the profiler recorded no device "
-              "activity")
-    else:
-        busy_ms, top = prof
-        print(f"[profile] device busy {busy_ms:.3f} ms of the {ms:.3f} ms "
-              f"median match ({100.0 * (1.0 - busy_ms / ms):.1f} % idle); "
-              "by kernel: "
-              + "; ".join(f"{n} {t:.3f} ms x{c}" for n, t, c in top))
+    where_time_goes(torch, left, right, opts, dev, disp, "main", ms)
+
+    # 6. the matmul backend, dense and banded (B5)
+    for tag in ("matmul", "banded"):
+        disp_b, path_launches[tag], ms_b = drive_path(
+            torch, tag, left, right, opts, dev, gt
+        )
+        where_time_goes(torch, left, right, opts, dev, disp_b, tag, ms_b)
+        fin, fin_b = torch.isfinite(disp), torch.isfinite(disp_b)
+        same = (disp_b == disp) | (~fin & ~fin_b)
+        near = (fin & fin_b & ((disp_b - disp).abs() <= 1e-3)) | (
+            ~fin & ~fin_b)
+        print(f"[{tag}] agrees with [main] on "
+              f"{100.0 * float(same.float().mean()):.2f} % of pixels "
+              f"bitwise, {100.0 * float(near.float().mean()):.2f} % within "
+              "1e-3 (validity included)")
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces, path) in KERNELS.items():
         r = results[name]
+        n = path_launches[path][name]
         print(f"[kernel] {name}: {r['ms']:.4f} ms per launch, plain "
-              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}), {launches[name]} launches per match")
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), {n} launches per "
+              f"[{path}] match")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -353,20 +509,42 @@ def main() -> int:
     return 0
 
 
-def device_profile(torch, left, right, opts, dev, top_n: int = 12):
-    """Device time of one match from torch.profiler: the union of its
-    kernels' intervals (ms), and the ``top_n`` kernels by total device
-    time as (name, ms, calls); None when the profiler sees no device."""
+def where_time_goes(torch, left, right, opts, dev, expect, tag, ms):
+    """Print path ``tag``'s stage breakdown and device profile; ``ms`` is
+    its median match time."""
+    stage_ms = stage_breakdown(torch, left, right, opts, expect, tag)
+    print(f"[stages {tag}] "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
+    prof = device_profile(torch, left, right, opts, dev, tag)
+    if prof is None:
+        print(f"[profile {tag}] not measured: the profiler recorded no "
+              "device activity")
+        return
+    busy_ms, top = prof
+    print(f"[profile {tag}] device busy {busy_ms:.3f} ms of the {ms:.3f} ms "
+          f"median match ({100.0 * (1.0 - busy_ms / ms):.1f} % idle); "
+          "by kernel: "
+          + "; ".join(f"{n} {t:.3f} ms x{c}" for n, t, c in top))
+
+
+def device_profile(torch, left, right, opts, dev, tag="main",
+                   top_n: int = 12):
+    """Device time of one match on path ``tag`` from torch.profiler: the
+    union of its kernels' intervals (ms), and the ``top_n`` kernels by
+    total device time as (name, ms, calls); None when the profiler sees
+    no device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from adcensus_torch.stages import pipeline
 
-    pipeline.match_device(left, right, opts, device=dev)
+    cross_backend, agg_impl, _ = PATHS[tag]
+    kwargs = dict(device=dev, cross_backend=cross_backend, agg_impl=agg_impl)
+    pipeline.match_device(left, right, opts, **kwargs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipeline.match_device(left, right, opts, device=dev)
+        pipeline.match_device(left, right, opts, **kwargs)
         torch.cuda.synchronize()
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
@@ -385,11 +563,12 @@ def device_profile(torch, left, right, opts, dev, top_n: int = 12):
     return busy_us / 1e3, [(n[:60], t, c) for n, (t, c) in top]
 
 
-def stage_breakdown(torch, left, right, opts, expect):
-    """CUDA-event time of each stage of one match, in match_core's order;
-    the chained result must equal ``expect``."""
+def stage_breakdown(torch, left, right, opts, expect, tag="main"):
+    """CUDA-event time of each stage of one match on path ``tag``, in
+    match_core's order; the chained result must equal ``expect``."""
     from adcensus_torch.stages import aggregate, arms, cost, refine, scanline, wta
 
+    cross_backend, agg_impl, _ = PATHS[tag]
     marks = []
 
     def mark(name):
@@ -407,7 +586,8 @@ def stage_breakdown(torch, left, right, opts, expect):
         mark("cost")
         a = arms.build_arms(left, opts)
         mark("arms")
-        vol = aggregate.aggregate(vol, a, opts)
+        vol = aggregate.aggregate(vol, a, opts, cross_backend=cross_backend,
+                                  agg_impl=agg_impl)
         mark("aggregate")
         vol = scanline.scanline_optimize(vol, left, right, opts)
         mark("scanline")
@@ -415,7 +595,9 @@ def stage_breakdown(torch, left, right, opts, expect):
         mark("wta")
         disp, occl, mism = refine.outlier_detection(dl, dr, opts)
         mark("lr_check")
-        disp = refine.iterative_region_voting(disp, a, occl, mism, opts)
+        disp = refine.iterative_region_voting(
+            disp, a, occl, mism, opts, cross_backend=cross_backend
+        )
         mark("voting")
         disp = refine.proper_interpolation(disp, left, occl, mism, opts)
         mark("interpolation")
@@ -423,7 +605,7 @@ def stage_breakdown(torch, left, right, opts, expect):
         mark("median")
         torch.cuda.synchronize()
     if not torch.equal(disp.view(torch.int32), expect.view(torch.int32)):
-        raise AssertionError("stage chain differs from match_device")
+        raise AssertionError(f"[{tag}] stage chain differs from match_device")
     return {
         name: prev.elapsed_time(ev)
         for (_, prev), (name, ev) in zip(marks, marks[1:])

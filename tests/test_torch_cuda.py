@@ -1,25 +1,27 @@
-"""The four CUDA kernels of adcensus_torch against their plain PyTorch
+"""The five CUDA kernels of adcensus_torch against their plain PyTorch
 versions on the card, bitwise, at shapes and options the main path of
-chip_smoke.py does not reach: arms beyond 127, D from 5 to 256, padded
-scan steps, rays longer than the image, a negative min_disparity.
+chip_smoke.py does not reach: arms beyond 127, D from 3 to 256, padded
+scan steps, rays longer than the image, a negative min_disparity, B5's
+window margins of 64 to 256 and D padded to 8; and the whole match on
+each backend against its plain-version pipeline.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports no
 JAX, so on the GPU host it runs without the JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
-from contextlib import ExitStack
-from unittest import mock
-
 import numpy as np
 import pytest
 import torch
 
 from adcensus_torch.config import ADCensusOptions
-from adcensus_torch.ops import _build, cross_sum, interp, region_vote, scanline
+from adcensus_torch.ops import (
+    _build, band_mm, cross_sum, interp, region_vote, scanline,
+)
 from adcensus_torch.stages import aggregate, arms, pipeline, refine
 from adcensus_torch.stages import scanline as scan_stage
 from adcensus_torch.synthetic import two_layer_pair
+from chip_smoke import plain_versions
 
 pytestmark = pytest.mark.cuda
 
@@ -124,13 +126,91 @@ def test_match_device_equals_plain_pipeline(dev):
                            cross_L1=150, cross_L2=60)
     _build.reset_launches()
     disp = pipeline.match_device(left, right, opts, device=dev)
-    assert all(_build.launches.values()), _build.launches
-    with ExitStack() as stack:
-        for mod in ("cross_sum", "scanline", "region_vote", "interp"):
-            stack.enter_context(mock.patch(
-                f"adcensus_torch.ops.{mod}.kernels_for", lambda t: False
-            ))
+    launches = dict(_build.launches)
+    assert launches.pop("band_mm") == 0
+    assert all(launches.values()), launches
+    with plain_versions():
         _build.reset_launches()
         plain = pipeline.match_device(left, right, opts, device=dev)
+        assert not any(_build.launches.values())
+    _assert_bitwise(disp, plain)
+
+
+def _random_arms(rng, h, w, max_arm):
+    """Random int32 arms up to ``max_arm``, clipped to the border."""
+    yy = np.arange(h)[:, None] * np.ones((1, w), int)
+    xx = np.arange(w)[None, :] * np.ones((h, 1), int)
+    return np.stack([
+        np.minimum(rng.integers(0, max_arm + 1, (h, w)), xx),
+        np.minimum(rng.integers(0, max_arm + 1, (h, w)), w - 1 - xx),
+        np.minimum(rng.integers(0, max_arm + 1, (h, w)), yy),
+        np.minimum(rng.integers(0, max_arm + 1, (h, w)), h - 1 - yy),
+    ], axis=-1).astype(np.int32)
+
+
+# (D, H, W, max_arm): the Cone size at the default arm cap (PAD 64); the
+# odd shape of tests/test_aggregate.py (PAD 128); PAD 256; D=3 -> Dp=8
+BAND_CASES = {
+    "cone": (64, 375, 450, 34),
+    "odd": (12, 37, 141, 70),
+    "pad256": (8, 60, 300, 200),
+    "d3": (3, 50, 130, 20),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES))
+def test_band_mm_bitwise(dev, case):
+    """B5 against band_pass_plain in both directions, on the padded
+    volume and masks aggregate_banded gives it."""
+    d, h, w, max_arm = BAND_CASES[case]
+    rng = np.random.default_rng(d + h)
+    cost = torch.as_tensor(rng.random((d, h, w), np.float32) * 2, device=dev)
+    arms_t = torch.as_tensor(_random_arms(rng, h, w, max_arm), device=dev)
+    dp, hp, wp = band_mm.padded_dims(d, h, w)
+    masks = band_mm.make_blocked_masks(arms_t, max_arm, hp, wp)
+    vol = torch.nn.functional.pad(cost, (0, wp - w, 0, hp - h, 0, dp - d))
+    for vm, mask, pad in (
+        (band_mm.with_margins(vol, wp, masks.pad_w), masks.mh, masks.pad_w),
+        (band_mm.with_margins(vol.transpose(1, 2).contiguous(), hp,
+                              masks.pad_h), masks.mv, masks.pad_h),
+    ):
+        _build.reset_launches()
+        out = band_mm.band_pass(vm, mask, pad)
+        assert _build.launches["band_mm"] == 1
+        _assert_bitwise(out, band_mm.band_pass_plain(vm, mask, pad))
+
+
+def test_aggregate_banded_close_to_plain_cross_sum(dev):
+    d, h, w, max_arm = 16, 100, 200, 34
+    rng = np.random.default_rng(11)
+    cost = torch.as_tensor(rng.random((d, h, w), np.float32) * 2, device=dev)
+    a = torch.as_tensor(_random_arms(rng, h, w, max_arm), device=dev)
+    sup_h, sup_v = (s.float() for s in aggregate.support_counts(a, max_arm))
+    _build.reset_launches()
+    out = band_mm.aggregate_banded(cost, a, sup_h, sup_v, max_arm)
+    assert _build.launches["band_mm"] == 8
+    ref = cost
+    for it in range(4):
+        hf = it % 2 == 0
+        ref = cross_sum.cross_pass_plain(ref, a, sup_h if hf else sup_v, hf,
+                                         max_arm)
+    torch.testing.assert_close(out, ref, atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("agg_impl", [None, "banded"])
+def test_match_device_matmul_equals_plain_pipeline(dev, agg_impl):
+    """The matmul backend on the card: the kernels it runs (B5 only when
+    banded; never B1 or B3) give the same match as the plain versions."""
+    left, right, _ = two_layer_pair(60, 200, 4, 9, seed=3)
+    opts = ADCensusOptions(min_disparity=-2, max_disparity=14)
+    kwargs = dict(device=dev, cross_backend="matmul", agg_impl=agg_impl)
+    _build.reset_launches()
+    disp = pipeline.match_device(left, right, opts, **kwargs)
+    assert _build.launches["band_mm"] == (8 if agg_impl else 0)
+    assert _build.launches["cross_sum"] == _build.launches["region_vote"] == 0
+    assert _build.launches["scanline"] == 4
+    with plain_versions():
+        _build.reset_launches()
+        plain = pipeline.match_device(left, right, opts, **kwargs)
         assert not any(_build.launches.values())
     _assert_bitwise(disp, plain)

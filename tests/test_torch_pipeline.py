@@ -11,6 +11,7 @@ import torch
 
 from adcensus_torch.config import ADCensusOptions, options_from_jax
 from adcensus_torch.stages import aggregate as torch_agg
+from adcensus_torch.stages import cost as torch_cost
 from adcensus_torch.stages import pipeline as torch_pipeline
 from adcensus_torch.stages import refine as torch_refine
 from adcensus_torch.stages import scanline as torch_scan
@@ -66,13 +67,55 @@ def test_match_core_close_from_images(scene):
     for k in inter:
         assert ours[k].shape == inter[k].shape, k
         assert ours[k].dtype == inter[k].dtype, k
-    a, b = ours["disparity"], inter["disparity"]
+    _assert_close_match(ours["disparity"], inter["disparity"], gt)
+
+
+def _assert_close_match(a, b, gt):
+    """The port's disparity ``a`` against JAX's ``b`` from the same
+    images: validity agrees on >= 99 % of pixels, >= 99 % of the jointly
+    valid pixels agree within 1e-3, and the map is dense and good."""
     va, vb = np.isfinite(a), np.isfinite(b)
     assert (va == vb).mean() >= 0.99
     both = va & vb
     assert (np.abs(a[both] - b[both]) <= 1e-3).mean() >= 0.99
     assert va.mean() > 0.9
     assert bad_pct(a, gt, 2.0) < 10.0
+
+
+@pytest.mark.parametrize("agg_impl", [None, "banded"])
+def test_match_core_matmul_close_to_jax(scene, agg_impl, monkeypatch):
+    """The matmul backend, dense or banded (kernel B5's plain version),
+    against JAX's match_core(use_pallas="matmul") with ADC_AGG_IMPL set
+    to match, eagerly, from the same images."""
+    left, right, gt, _ = scene
+    monkeypatch.setenv("ADC_AGG_IMPL", agg_impl or "xla")
+    jl, jr = jnp.asarray(left), jnp.asarray(right)
+    ref = jax_pipeline.match_core(
+        jl, jr, jax_cost.compute_gray(jl), jax_cost.compute_gray(jr),
+        JaxOptions(**OPTS), use_pallas="matmul",
+    )["disparity"]
+    lt, rt = torch.as_tensor(left), torch.as_tensor(right)
+    ours = torch_pipeline.match_core(
+        lt, rt, torch_cost.compute_gray(lt), torch_cost.compute_gray(rt),
+        ADCensusOptions(**OPTS), cross_backend="matmul", agg_impl=agg_impl,
+    )["disparity"]
+    _assert_close_match(ours.numpy(), np.asarray(ref), gt)
+
+
+def test_entry_points_reject_unknown_backends(scene):
+    left, right, _, _ = scene
+    opts = ADCensusOptions(**OPTS)
+    lt, rt = torch.as_tensor(left), torch.as_tensor(right)
+    gray = torch_cost.compute_gray(lt)
+    for kwargs in (dict(cross_backend="pallas"), dict(cross_backend=True),
+                   dict(agg_impl="xla"), dict(agg_impl="")):
+        with pytest.raises(ValueError):
+            torch_pipeline.match_core(lt, rt, gray, gray, opts, **kwargs)
+        with pytest.raises(ValueError):
+            torch_pipeline.match_device(left, right, opts, device="cpu",
+                                        **kwargs)
+        with pytest.raises(ValueError):
+            torch_pipeline.match(left, right, opts, device="cpu", **kwargs)
 
 
 def test_match_device_and_gray_modes(scene):
