@@ -3,8 +3,9 @@
 Port of ``adcensus_tpu/ops/scanline_pallas.py``. ``scanline_pass`` takes
 the (D, H, W) volume as it lies: for a CUDA tensor it launches
 ``csrc/scanline.cu``, which walks the volume through strides (no
-transposed copy); for a CPU tensor it runs ``scanline_pass_plain``, the
-port of ``stages/scanline.py:scanline_pass_scan``.
+transposed copy), one warp per path, with the launch geometry of
+``scanline_geometry``; for a CPU tensor it runs ``scanline_pass_plain``,
+the port of ``stages/scanline.py:scanline_pass_scan``.
 
 Recurrence (scanline_optimizer.cpp:143-151; no min subtraction, /2):
     Lr(p,d) = (C(p,d) + min(Lr(p-r,d), Lr(p-r,d-1)+P1,
@@ -12,6 +13,8 @@ Recurrence (scanline_optimizer.cpp:143-151; no min subtraction, /2):
 with Large_Float at d = -1 and d = D.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -26,7 +29,85 @@ FLAG_PAD = 0
 FLAG_SEED = 1
 FLAG_NORMAL = 2
 
+MAX_D = 1024
+SMEM_LIMIT = 232_448          # shared memory one H100 block may use
+PATHS_PER_BLOCK = 4           # compute warps per block, one per path
+MIN_BLOCKS = 64               # fewer paths per block below this grid
+# Launch geometry measured fastest on the H100 at 64x375x450 (see
+# sweep_scanline.py): 32-step chunks on x passes, 16 on y passes, and
+# enough ring slots to copy 64 steps ahead of the compute warps.
+STEPS_PER_CHUNK = {"x": 32, "y": 16}
+LOOKAHEAD_STEPS = 64
+MAX_STAGES = 6                # ring slots
 
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def scanline_layout(d: int, pb: int, k: int, axis: str):
+    """One ring slot of kernel B2 in bytes, as csrc/scanline.cu lays it
+    out: a (D, outer, inner) f32 cost tile whose inner axis is the
+    volume's contiguous one (steps on x passes, paths on y passes) and
+    whose rows hold exactly their cells; a uint8 code tile whose rows are
+    the grain-aligned windows that cover their ``inner`` codes (16-byte
+    grains on x passes, 4-byte on y passes); and K int32 flags. An odd
+    number of 8-byte units (grains) between d-planes spreads the lanes of
+    a warp, one d apart, over the banks.
+
+    Returns (inner, outer, cost d-stride, code grain, code grains per
+    row, code d-stride, slot bytes)."""
+    inner, outer = (k, pb) if axis == "x" else (pb, k)
+    cost_ds = -(-outer * inner * 4 // 8) * 8
+    if cost_ds // 8 % 2 == 0:
+        cost_ds += 8
+    grain = 16 if axis == "x" else 4
+    groups = (2 * grain - 2 + inner) // grain
+    code_ds = outer * groups * grain
+    if code_ds // grain % 2 == 0:
+        code_ds += grain
+    slot = _round16(d * cost_ds) + _round16(d * code_ds) + _round16(4 * k)
+    return inner, outer, cost_ds, grain, groups, code_ds, slot
+
+
+@functools.lru_cache(maxsize=None)
+def scanline_geometry(d: int, s: int, p: int, axis: str):
+    """Launch geometry of kernel B2 for a (D, S steps, P paths) pass:
+    (paths per block PB, steps per chunk K, ring slots, shared bytes).
+
+    PB is PATHS_PER_BLOCK, halved while the grid would have fewer than
+    MIN_BLOCKS blocks; K is STEPS_PER_CHUNK[axis], halved while it is
+    twice the scan. The ring takes 1 + LOOKAHEAD_STEPS / K slots (2 to
+    MAX_STAGES), fewer where SMEM_LIMIT is short; where even two do not
+    fit, K halves, then PB. Raises ValueError for what no geometry fits."""
+    if axis not in ("x", "y"):
+        raise ValueError(f"axis must be 'x' or 'y', got {axis!r}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"scanline kernel takes 1 <= D <= {MAX_D}, got {d}")
+    if s < 1 or p < 1:
+        raise ValueError(f"scanline needs S >= 1 and P >= 1, got {s}, {p}")
+    pb = PATHS_PER_BLOCK
+    while pb > 1 and -(-p // pb) < MIN_BLOCKS:
+        pb //= 2
+    k = STEPS_PER_CHUNK[axis]
+    while k > 1 and k >= 2 * s:
+        k //= 2
+    while True:
+        slot = scanline_layout(d, pb, k, axis)[-1]
+        stages = min(MAX_STAGES, 1 + -(-LOOKAHEAD_STEPS // k),
+                     SMEM_LIMIT // slot)
+        if stages >= 2:
+            return pb, k, stages, stages * slot
+        if k > 1:
+            k //= 2
+        elif pb > 1:
+            pb //= 2
+        else:
+            raise ValueError(f"no scanline geometry fits D={d} in "
+                             f"{SMEM_LIMIT} bytes of shared memory")
+
+
+@functools.lru_cache(maxsize=None)
 def penalty_table(p1: float, p2: float):
     """float32 (P1, P2) for penalty codes 0, 1, 2: (p1, p2), (p1, p2)/4,
     (p1, p2)/10, each an f32 division (scanline_optimizer.cpp:128-141)."""
@@ -125,6 +206,18 @@ def scanline_pass(
         _build.check(name, t, dtype, shape, cost.device)
     if not kernels_for(cost):
         return scanline_pass_plain(cost, code, flags, p1, p2, axis, reverse)
+    return launch_pass(cost, code, flags, p1, p2, axis, reverse,
+                       scanline_geometry(d, s_len, paths, axis))
+
+
+def launch_pass(cost, code, flags, p1, p2, axis, reverse, geometry):
+    """Launch kernel B2 on checked CUDA tensors with ``geometry`` =
+    (PB, K, ring slots, shared bytes); ``scanline_pass`` gives it
+    ``scanline_geometry``'s, the card tests and the geometry sweep
+    others."""
+    d, h, w = cost.shape
+    s_len, paths = (w, h) if axis == "x" else (h, w)
+    s_stride, p_stride = (1, w) if axis == "x" else (w, 1)
     (a0, a1, a2), (b0, b1, b2) = penalty_table(p1, p2)
     out = torch.empty_like(cost)
     _build.launch(
@@ -132,7 +225,7 @@ def scanline_pass(
         cost.data_ptr(), code.data_ptr(), flags.data_ptr(), out.data_ptr(),
         d, s_len, paths, h * w, s_stride, p_stride,
         float(a0), float(a1), float(a2), float(b0), float(b1), float(b2),
-        int(reverse),
+        int(reverse), int(axis == "x"), *geometry,
         torch.cuda.current_stream(cost.device).cuda_stream,
     )
     return out

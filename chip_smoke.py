@@ -11,7 +11,8 @@ imports nothing of JAX. Phases, each raising on failure:
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the path that runs it and on that path's own inputs,
    bitwise, timed with CUDA events beside its bound (and, for B5, one
-   PyTorch library call of the same function); one dense band-matrix
+   PyTorch library call of the same function; for B2, the time per scan
+   step); one dense band-matrix
    aggregation iteration beside B1, not bitwise;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
@@ -445,6 +446,9 @@ def main() -> int:
                 ls.append(time_ms(torch, library))
                 lib_note = (f", library {ls[-1]:.4f} ms (max |diff| "
                             f"{lib_err:.3g})")
+            if name == "scanline":  # step latency against bytes
+                steps = W if label.startswith("x") else H
+                lib_note += f", {k_ms * 1e6 / steps:.1f} ns per scan step"
             print(f"[kernel] {name} {label}: {k_ms:.4f} ms, plain "
                   f"{p_ms:.4f} ms{lib_note}, bound {b_ms:.4f} ms "
                   f"({b_kind}, {n_bytes / 1e6:.1f} MB, "

@@ -1,7 +1,8 @@
 """The five CUDA kernels of adcensus_torch against their plain PyTorch
 versions on the card, bitwise, at shapes and options the main path of
-chip_smoke.py does not reach: arms beyond 127, D from 3 to 256, padded
-scan steps, rays longer than the image, a negative min_disparity, B5's
+chip_smoke.py does not reach: arms beyond 127, D from 1 to 1024, padded
+scan steps and B2's partial chunks and blocks at several launch
+geometries, rays longer than the image, a negative min_disparity, B5's
 window margins of 64 to 256 and D padded to 8; and the whole match on
 each backend against its plain-version pipeline.
 
@@ -69,21 +70,85 @@ def test_cross_sum_long_arms(dev, horizontal_first):
                     cross_sum.cross_pass_plain(*args))
 
 
-@pytest.mark.parametrize("d", [5, 64, 256])
-@pytest.mark.parametrize("axis,forward",
-                         [("x", True), ("x", False), ("y", True), ("y", False)])
-def test_scanline_padded_steps(dev, d, axis, forward):
-    h, w = 24, 40
-    rng = np.random.default_rng(d)
-    cost = torch.as_tensor(rng.random((d, h, w), np.float32) * 2, device=dev)
-    code = torch.as_tensor(rng.integers(0, 3, (d, h, w), np.uint8),
-                           device=dev)
+# (D, H, W, padding): D from 1 to 1024 (lane runs of 1 to 32); S of 1,
+# 7 and 33 against K (x: S = W, y: S = H); P of 1 and 5, and 375 and 450
+# paths in blocks of 4 with a partial last block; PAD runs that cross the
+# chunk boundary at step 32 and a SEED at step 33.
+SCAN_CASES = {
+    "d1": (1, 24, 40, "edges"), "d5": (5, 24, 40, "edges"),
+    "d31": (31, 24, 40, "edges"), "d33": (33, 24, 40, "edges"),
+    "d64": (64, 24, 40, "edges"), "d256": (256, 24, 40, "edges"),
+    "d1024": (1024, 9, 12, "edges"),
+    "s1p1": (64, 1, 1, "none"), "s7p5": (64, 5, 7, "none"),
+    "s33p1": (64, 1, 33, "none"), "s33p5": (64, 33, 5, "none"),
+    "p375": (8, 375, 10, "edges"), "p450": (8, 10, 450, "edges"),
+    "pad_across_chunk": (16, 70, 70, "middle"),
+    "late_seed": (16, 70, 70, "late"),
+}
+PADDING = {"none": (), "edges": ((0, 3), (-2, None)),
+           "middle": ((0, 3), (30, 36)), "late": ((0, 33),)}
+
+
+def _scan_inputs(dev, case, axis, negative):
+    d, h, w, padding = SCAN_CASES[case]
+    rng = np.random.default_rng(d + h + w)
+    cost = rng.random((d, h, w), np.float32) * 2 - (1.0 if negative else 0.0)
+    code = rng.integers(0, 3, (d, h, w), np.uint8)
     s_len = w if axis == "x" else h
     valid = torch.ones(s_len, dtype=torch.bool, device=dev)
-    valid[:3] = False
-    valid[-2:] = False
-    flags = scan_stage._scan_flags(s_len, valid)
+    for lo, hi in PADDING[padding]:
+        valid[lo:hi] = False
+    return (torch.as_tensor(cost, device=dev),
+            torch.as_tensor(code, device=dev),
+            scan_stage._scan_flags(s_len, valid))
+
+
+@pytest.mark.parametrize("negative", [False, True])
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+@pytest.mark.parametrize("axis,forward",
+                         [("x", True), ("x", False), ("y", True), ("y", False)])
+def test_scanline_padded_steps(dev, case, axis, forward, negative):
+    cost, code, flags = _scan_inputs(dev, case, axis, negative)
     args = (cost, code, flags, 1.0, 3.0, axis, not forward)
+    _build.reset_launches()
+    out = scanline.scanline_pass(*args)
+    assert _build.launches["scanline"] == 1
+    _assert_bitwise(out, scanline.scanline_pass_plain(*args))
+
+
+@pytest.mark.parametrize("pb,k,stages", [(1, 1, 2), (2, 4, 2), (8, 8, 3),
+                                         (4, 16, 2)])
+@pytest.mark.parametrize("axis,forward",
+                         [("x", True), ("x", False), ("y", True), ("y", False)])
+def test_scanline_other_geometries(dev, pb, k, stages, axis, forward):
+    """B2 at launch geometries scanline_geometry does not pick for these
+    shapes: more paths per block than the grid wants, short chunks, two
+    ring slots; partial blocks and chunks, negative costs."""
+    cost, code, flags = _scan_inputs(dev, "pad_across_chunk", axis, True)
+    d, h, w = cost.shape
+    smem = stages * scanline.scanline_layout(d, pb, k, axis)[-1]
+    args = (cost, code, flags, 1.0, 3.0, axis, not forward)
+    _assert_bitwise(
+        scanline.launch_pass(*args, (pb, k, stages, smem)),
+        scanline.scanline_pass_plain(*args))
+
+
+@pytest.mark.parametrize("cost_shift,code_shift", [(1, 3), (2, 1), (3, 2)])
+@pytest.mark.parametrize("axis,forward",
+                         [("x", True), ("x", False), ("y", True), ("y", False)])
+def test_scanline_misaligned_inputs(dev, cost_shift, code_shift, axis,
+                                    forward):
+    """B2 on contiguous views that start 4 to 12 bytes (cost) and 1 to 3
+    bytes (code) past a 16-byte boundary: cost rows move in 4-byte grains
+    and code windows follow the code's own alignment."""
+    cost, code, flags = _scan_inputs(dev, "pad_across_chunk", axis, True)
+    n = cost.numel()
+    cost_v = torch.empty(n + cost_shift, device=dev)[cost_shift:]
+    code_v = torch.empty(n + code_shift, dtype=torch.uint8,
+                         device=dev)[code_shift:]
+    cost_v = cost_v.view(cost.shape).copy_(cost)
+    code_v = code_v.view(code.shape).copy_(code)
+    args = (cost_v, code_v, flags, 1.0, 3.0, axis, not forward)
     _assert_bitwise(scanline.scanline_pass(*args),
                     scanline.scanline_pass_plain(*args))
 
