@@ -34,7 +34,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 # kernel name -> argtypes of its C entry point adc_<name>
 SIGNATURES = {
-    "cross_sum": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "cross_sum": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _I, _I, _I, _I, _I, _P),
     "scanline": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
                  _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "region_vote": (_P, _P, _P, _P, _I, _I, _I, _I, _P),

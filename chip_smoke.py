@@ -10,10 +10,11 @@ imports nothing of JAX. Phases, each raising on failure:
 2. build: the five CUDA kernels, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the path that runs it and on that path's own inputs,
-   bitwise, timed with CUDA events beside its bound (and, for B5, one
-   PyTorch library call of the same function; for B2, the time per scan
-   step); one dense band-matrix
-   aggregation iteration beside B1, not bitwise;
+   bitwise, timed with CUDA events over runs of back-to-back calls
+   (``time_ms``) beside its bound (and, for B5, one PyTorch library call
+   of the same function; for B2, the time per scan step); B1 also at Cone
+   size with arms that reach the cap, beside its own bound; one dense
+   band-matrix aggregation iteration beside B1, not bitwise;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
    backend), with the launch counts of one match, the match time, bitwise
@@ -42,7 +43,10 @@ from unittest import mock
 
 H, W, MAX_D = 375, 450, 64
 D_BG, D_FG, SEED = 16, 32, 0
-KERNEL_RUNS = 10
+TIMING_RUNS = 5                    # runs of back-to-back calls per time
+RUN_TARGET_MS = 5.0                # about this long a run
+MAX_CALLS = 200                    # calls per run at most
+SLEEP_CYCLES_PER_S = 2.0e9         # above the H100's top SM clock
 MATCH_RUNS = 7
 MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
@@ -88,19 +92,40 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_ms(torch, fn, runs: int = KERNEL_RUNS) -> float:
-    """Median CUDA-event time of ``fn()`` after two warm-up calls."""
+def time_ms(torch, fn, runs: int = TIMING_RUNS) -> float:
+    """CUDA-event ms of one ``fn()``: the median over ``runs`` runs of the
+    time of n back-to-back calls between one pair of events, over n.
+
+    After two warm-up calls, n is chosen so that a run takes about
+    RUN_TARGET_MS (1 to MAX_CALLS calls). Each run starts behind a device
+    sleep longer than the host takes to queue its n calls (measured on a
+    warm-up run), so the card runs the calls back to back and the
+    wrappers' host work stays outside the window. The inputs stay the
+    same from call to call, so what fits the 50 MB L2 stays there."""
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    n = max(1, min(MAX_CALLS, int(RUN_TARGET_MS / one_ms)))
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    queue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     times = []
     for _ in range(runs):
+        torch.cuda._sleep(int(2 * queue_s * SLEEP_CYCLES_PER_S) + 1000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
 
 
@@ -177,9 +202,7 @@ def kernel_cases(torch, inter, left, opts):
     of the path that runs it. B5's are the [banded] path's: the Cone-size
     cost_init padded as aggregate_banded pads it, and masks from the
     path's own arms."""
-    from adcensus_torch.ops import (
-        band_mm, cross_sum, interp, region_vote, scanline,
-    )
+    from adcensus_torch.ops import band_mm, interp, region_vote, scanline
     from adcensus_torch.stages import aggregate, refine
     from adcensus_torch.stages import scanline as scan_stage
 
@@ -187,21 +210,10 @@ def kernel_cases(torch, inter, left, opts):
     hw, dhw = h * w, d * h * w
     arms = inter["arms"]
     max_arm = min(opts.cross_L1, 255)
-    sup_h, sup_v = (s.float() for s in aggregate.support_counts(arms, max_arm))
-    ext = (arms[..., 0] + arms[..., 1] + 1).sum() + (
-        arms[..., 2] + arms[..., 3] + 1
-    ).sum()
+    sup_h = aggregate.support_counts(arms, max_arm)[0].float()
     cases = {name: [] for name in KERNELS}
-
-    vol = inter["cost_init"]
-    for hf, sup in ((True, sup_h), (False, sup_v)):
-        args = (vol, arms, sup, hf, max_arm)
-        cases["cross_sum"].append((
-            f"{'horizontal' if hf else 'vertical'}-first",
-            lambda a=args: cross_sum.cross_pass(*a),
-            lambda a=args: cross_sum.cross_pass_plain(*a), None,
-            dhw * 8 + hw * 20, d * (int(ext) + hw),
-        ))
+    cases["cross_sum"] = cross_sum_cases(torch, inter["cost_init"], arms,
+                                         max_arm, "")
 
     vol = inter["cost_aggr"]
     for axis, fwd in (("x", True), ("x", False), ("y", True), ("y", False)):
@@ -274,6 +286,83 @@ def kernel_cases(torch, inter, left, opts):
             4 * mask.shape[1] * n_out,  # 2 parts x (multiply, add)
         ))
     return cases
+
+
+def cross_sum_cases(torch, vol, arms, max_arm, label):
+    """B1's cases on ``vol`` and ``arms``, one per order, as kernel_cases
+    gives them. Its bound: the volume read and written, the arms and sup
+    read; one add per term of this run's arms and one division per
+    cell."""
+    from adcensus_torch.ops import cross_sum
+    from adcensus_torch.stages import aggregate
+
+    d, h, w = vol.shape
+    hw = h * w
+    terms = (arms[..., 0] + arms[..., 1] + 1).sum() + (
+        arms[..., 2] + arms[..., 3] + 1
+    ).sum()
+    longest = int(arms.max())
+    sups = (s.float() for s in aggregate.support_counts(arms, max_arm))
+    cases = []
+    for hf, sup in zip((True, False), sups):
+        args = (vol, arms, sup, hf, max_arm)
+        cases.append((
+            f"{label}{'horizontal' if hf else 'vertical'}-first (arms up "
+            f"to {longest})",
+            lambda a=args: cross_sum.cross_pass(*a),
+            lambda a=args: cross_sum.cross_pass_plain(*a), None,
+            d * hw * 8 + hw * 20, d * (int(terms) + hw),
+        ))
+    return cases
+
+
+def long_arm_cases(torch, dev, opts):
+    """B1 at Cone size where the arms reach the cap: a seeded random
+    (MAX_D, H, W) float32 volume and the arms of a near-constant image
+    (100 +- 2 a channel), which run to cross_L1 or the border."""
+    import numpy as np
+
+    from adcensus_torch.stages import arms as arms_stage
+
+    rng = np.random.default_rng(SEED)
+    image = (100 + rng.integers(-2, 3, size=(H, W, 3))).astype(np.uint8)
+    arms = arms_stage.build_arms(torch.as_tensor(image, device=dev), opts)
+    vol = torch.as_tensor(rng.random((MAX_D, H, W), np.float32), device=dev)
+    return cross_sum_cases(torch, vol, arms, min(opts.cross_L1, 255),
+                           "long arms, ")
+
+
+def measure_case(torch, name, case):
+    """Hold one kernel case bitwise against its plain version (and its
+    library call, if any, within 1e-4), time all three, print a line;
+    return (max |diff|, kernel ms, plain ms, library ms or None, bound ms,
+    bound kind)."""
+    label, kern, plain, library, n_bytes, n_ops = case
+    out_k, out_p = kern(), plain()
+    outs = (out_k, out_p) if isinstance(out_k, tuple) else (
+        (out_k,), (out_p,))
+    err = max(max_abs_err(torch, a, b) for a, b in zip(*outs))
+    k_ms = time_ms(torch, kern)
+    p_ms = time_ms(torch, plain)
+    b_ms, b_kind = bound_ms(n_bytes, n_ops,
+                            OPS_PER_S.get(name, SCALAR_OPS_PER_S))
+    l_ms, lib_note = None, ""
+    if library is not None:
+        lib_err = float((library() - out_k).abs().max())
+        if not lib_err <= 1e-4:
+            raise AssertionError(
+                f"{name} {label}: the library call differs by {lib_err}"
+            )
+        l_ms = time_ms(torch, library)
+        lib_note = f", library {l_ms:.4f} ms (max |diff| {lib_err:.3g})"
+    if name == "scanline":  # step latency against bytes
+        steps = W if label.startswith("x") else H
+        lib_note += f", {k_ms * 1e6 / steps:.1f} ns per scan step"
+    print(f"[kernel] {name} {label}: {k_ms:.4f} ms, plain {p_ms:.4f} ms"
+          f"{lib_note}, bound {b_ms:.4f} ms ({b_kind}, "
+          f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} G operations); "
+          "bitwise")
+    return err, k_ms, p_ms, l_ms, b_ms, b_kind
 
 
 def dense_matmul_note(torch, inter, opts):
@@ -421,46 +510,19 @@ def main() -> int:
     )
     results = {}
     for name, cases in kernel_cases(torch, inter, left, opts).items():
-        errs, ks, ps, ls, bs, bound_kinds = [], [], [], [], [], []
-        for label, kern, plain, library, n_bytes, n_ops in cases:
-            out_k, out_p = kern(), plain()
-            outs = (out_k, out_p) if isinstance(out_k, tuple) else (
-                (out_k,), (out_p,))
-            errs += [max_abs_err(torch, a, b) for a, b in zip(*outs)]
-            k_ms = time_ms(torch, kern)
-            p_ms = time_ms(torch, plain)
-            b_ms, b_kind = bound_ms(n_bytes, n_ops,
-                                    OPS_PER_S.get(name, SCALAR_OPS_PER_S))
-            ks.append(k_ms)
-            ps.append(p_ms)
-            bs.append(b_ms)
-            bound_kinds.append(b_kind)
-            lib_note = ""
-            if library is not None:
-                lib_err = float((library() - out_k).abs().max())
-                if not lib_err <= 1e-4:
-                    raise AssertionError(
-                        f"{name} {label}: the library call differs by "
-                        f"{lib_err}"
-                    )
-                ls.append(time_ms(torch, library))
-                lib_note = (f", library {ls[-1]:.4f} ms (max |diff| "
-                            f"{lib_err:.3g})")
-            if name == "scanline":  # step latency against bytes
-                steps = W if label.startswith("x") else H
-                lib_note += f", {k_ms * 1e6 / steps:.1f} ns per scan step"
-            print(f"[kernel] {name} {label}: {k_ms:.4f} ms, plain "
-                  f"{p_ms:.4f} ms{lib_note}, bound {b_ms:.4f} ms "
-                  f"({b_kind}, {n_bytes / 1e6:.1f} MB, "
-                  f"{n_ops / 1e9:.2f} G operations); bitwise")
+        rows = [measure_case(torch, name, case) for case in cases]
+        errs, ks, ps, ls, bs, kinds = zip(*rows)
+        ls = [v for v in ls if v is not None]
         results[name] = {
             "max_abs_err": max(errs),
             "ms": statistics.mean(ks),
             "plain_ms": statistics.mean(ps),
             "library_ms": statistics.mean(ls) if ls else None,
             "bound_ms": statistics.mean(bs),
-            "bound_by": max(set(bound_kinds), key=bound_kinds.count),
+            "bound_by": max(set(kinds), key=kinds.count),
         }
+    for case in long_arm_cases(torch, dev, opts):  # printed, not in the JSON
+        measure_case(torch, "cross_sum", case)
     for hf, ms, err in dense_matmul_note(torch, inter, opts):
         print(f"[note] dense cross_pass_matmul, "
               f"{'horizontal' if hf else 'vertical'}-first: {ms:.4f} ms "

@@ -11,12 +11,10 @@ geometry ``scanline_geometry`` picks. Needs a card; imports no JAX.
 """
 from __future__ import annotations
 
-import statistics
 import subprocess
 import sys
 
 D, H, W, SEED = 64, 375, 450, 0
-RUNS = 20
 
 
 def main() -> int:
@@ -25,6 +23,7 @@ def main() -> int:
 
     from adcensus_torch.ops import scanline
     from adcensus_torch.stages.scanline import _scan_flags
+    from chip_smoke import time_ms
 
     if not torch.cuda.is_available():
         print("sweep_scanline: CUDA is not available", file=sys.stderr)
@@ -57,16 +56,8 @@ def main() -> int:
                     if not torch.equal(out.view(torch.int32),
                                        ref.view(torch.int32)):
                         raise AssertionError(f"{axis} {fwd} {geo} differs")
-                    times = []
-                    for _ in range(RUNS):
-                        start = torch.cuda.Event(enable_timing=True)
-                        end = torch.cuda.Event(enable_timing=True)
-                        start.record()
-                        scanline.launch_pass(*args, geo)
-                        end.record()
-                        end.synchronize()
-                        times.append(start.elapsed_time(end))
-                    ms = statistics.median(times)
+                    ms = time_ms(torch, lambda: scanline.launch_pass(
+                        *args, geo))
                     mark = "  <- scanline_geometry" if geo == chosen else ""
                     print(f"[sweep] {axis} {'forward' if fwd else 'backward'}"
                           f" PB={pb} K={k} slots={stages} smem={smem}: "

@@ -4,7 +4,9 @@ chip_smoke.py does not reach: arms beyond 127, D from 1 to 1024, padded
 scan steps and B2's partial chunks and blocks at several launch
 geometries, rays longer than the image, a negative min_disparity, B5's
 window margins of 64 to 256 and D padded to 8; and the whole match on
-each backend against its plain-version pipeline.
+each backend against its plain-version pipeline. B1's cases cover its
+tiles: partial and one-pixel tiles, data-dependent halos that change
+from tile to tile, launch geometries other than the default.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports no
 JAX, so on the GPU host it runs without the JAX test configuration:
@@ -68,6 +70,88 @@ def test_cross_sum_long_arms(dev, horizontal_first):
     args = (vol, a, sup, horizontal_first, cap)
     _assert_bitwise(cross_sum.cross_pass(*args),
                     cross_sum.cross_pass_plain(*args))
+
+
+def _cross_inputs(dev, d, h, w, max_arm, kind, horizontal_first):
+    """Seeded volume in [-1, 1), arms up to ``max_arm`` clipped to the
+    border (random, or max_arm and 1 on alternate 32x64 squares, so that
+    neighbouring tiles need different halos), and the matching sup."""
+    rng = np.random.default_rng(d * 7 + h + w + max_arm)
+    vol = torch.as_tensor(rng.random((d, h, w), np.float32) * 2 - 1,
+                          device=dev)
+    a = _random_arms(rng, h, w, max_arm)
+    if kind == "squares":
+        yy, xx = np.mgrid[:h, :w]
+        big = (yy // 32 + xx // 64) % 2 == 1
+        border = (xx, w - 1 - xx, yy, h - 1 - yy)
+        a = np.stack([np.minimum(np.where(big, max_arm, 1), border[k])
+                      for k in range(4)], axis=-1).astype(np.int32)
+    a = torch.as_tensor(a, device=dev)
+    sup_h, sup_v = aggregate.support_counts(a, max_arm)
+    return vol, a, (sup_h if horizontal_first else sup_v).float()
+
+
+# (D, H, W, max_arm, arms, normalize): partial tiles on both axes (the
+# tiles are 32x32 horizontal-first and 64x16 vertical-first), images
+# smaller than a tile, D of 1, 3 and 256, arm caps of 0, 34 and above the
+# tile sides, halos that change sharply from tile to tile, no division
+CROSS_CASES = {
+    "partial_tiles": (5, 37, 70, 10, "random", True),
+    "smaller_than_tile": (3, 5, 7, 4, "random", True),
+    "h1": (3, 1, 50, 6, "random", True),
+    "w1": (3, 50, 1, 6, "random", True),
+    "one_pixel": (2, 1, 1, 3, "random", True),
+    "d1": (1, 40, 70, 10, "random", True),
+    "d3": (3, 40, 70, 10, "random", True),
+    "d256": (256, 30, 50, 10, "random", True),
+    "arm0": (4, 40, 70, 0, "random", True),
+    "arm34": (4, 60, 100, 34, "random", True),
+    "arm_over_tile": (4, 100, 170, 100, "random", True),
+    "sharp_halos": (6, 96, 200, 30, "squares", True),
+    "unnormalized": (5, 37, 70, 10, "random", False),
+}
+
+
+@pytest.mark.parametrize("horizontal_first", [True, False])
+@pytest.mark.parametrize("case", sorted(CROSS_CASES))
+def test_cross_sum_cases(dev, case, horizontal_first):
+    d, h, w, max_arm, kind, normalize = CROSS_CASES[case]
+    vol, a, sup = _cross_inputs(dev, d, h, w, max_arm, kind,
+                                horizontal_first)
+    args = (vol, a, sup, horizontal_first, max_arm, normalize)
+    _build.reset_launches()
+    out = cross_sum.cross_pass(*args)
+    assert _build.launches["cross_sum"] == 1
+    _assert_bitwise(out, cross_sum.cross_pass_plain(*args))
+
+
+@pytest.mark.parametrize("tile_x,tile_y,planes,threads", [
+    (8, 8, 1, 32), (16, 4, 2, 64), (5, 3, 8, 96), (200, 1, 4, 512),
+    (7, 9, 1, 128),
+])
+@pytest.mark.parametrize("horizontal_first", [True, False])
+def test_cross_sum_other_geometries(dev, tile_x, tile_y, planes, threads,
+                                    horizontal_first):
+    """B1 at launch geometries cross_sum_geometry does not pick: odd and
+    one-row tiles, 1 to 8 planes a block (D=5 leaves a partial plane
+    group), 32 to 512 threads, halos longer than the tile."""
+    d, h, w, max_arm = 5, 45, 75, 12
+    vol, a, sup = _cross_inputs(dev, d, h, w, max_arm, "squares",
+                                horizontal_first)
+    smem = 4 * planes * cross_sum.plane_capacity(
+        h, w, max_arm, horizontal_first, tile_x, tile_y)
+    args = (vol, a, sup, horizontal_first, max_arm, True)
+    geometry = (tile_x, tile_y, planes, threads, smem)
+    _assert_bitwise(cross_sum.launch_pass(*args, geometry),
+                    cross_sum.cross_pass_plain(*args))
+
+
+def test_cross_sum_refuses_short_shared_memory(dev):
+    vol, a, sup = _cross_inputs(dev, 2, 20, 30, 5, "random", True)
+    smem = 4 * cross_sum.plane_capacity(20, 30, 5, True, 8, 8)
+    with pytest.raises(RuntimeError, match="cross_sum"):
+        cross_sum.launch_pass(vol, a, sup, True, 5, True,
+                              (8, 8, 1, 64, smem - 4))
 
 
 # (D, H, W, padding): D from 1 to 1024 (lane runs of 1 to 32); S of 1,
