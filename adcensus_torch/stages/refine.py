@@ -141,14 +141,14 @@ def region_vote_phase(
     cross_backend: str = "roll",
     masks=None,
 ) -> torch.Tensor:
-    """One voting phase; skipped when it has no target. ``masks`` are the
-    matmul backend's prebuilt band matrices."""
-    if not bool(target.any()):
-        return disp
+    """One voting phase. It runs whatever its target, so that nothing is
+    read back to the host: with an empty target it returns ``disp`` bit
+    for bit, and kernel B3 visits the target pixels only. ``masks`` are
+    the matmul backend's prebuilt band matrices."""
     di, valid = vote_indices(disp, opts)
     best, max_ht, count = region_vote_stats(
         di, valid, arms, opts.disp_range, min(opts.cross_L1, MAX_ARM_LENGTH),
-        cross_backend, masks,
+        cross_backend, masks, target=target,
     )
     return apply_vote_fill(disp, target, best, max_ht, count, opts)
 

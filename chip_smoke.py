@@ -12,8 +12,11 @@ imports nothing of JAX. Phases, each raising on failure:
    the shapes of the path that runs it and on that path's own inputs,
    bitwise, timed with CUDA events over runs of back-to-back calls
    (``time_ms``) beside its bound (and, for B5, one PyTorch library call
-   of the same function; for B2, the time per scan step); B1 also at Cone
-   size with arms that reach the cap, beside its own bound; one dense
+   of the same function; for B2, the time per scan step); B3 on the first
+   iteration's mismatch and occlusion phases at their targets, and also
+   on every pixel, the work of its earlier design, beside that work's
+   bound, and on a phase without targets; B1 and B3 also at Cone size
+   with arms that reach the cap, beside their own bounds; one dense
    band-matrix aggregation iteration beside B1, not bitwise;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
@@ -21,8 +24,8 @@ imports nothing of JAX. Phases, each raising on failure:
    equality with the plain-version pipeline on the same card, and bad-2.0
    against the scene's ground truth;
 5. stages: where one main-path match's time goes, stage by stage (CUDA
-   events), and the device's busy time and heaviest kernels
-   (torch.profiler);
+   events), and the device's busy time, its heaviest kernels and the time
+   and calls of each hand-written kernel (torch.profiler);
 6. backends: the same match with ``cross_backend="matmul"``, dense
    (``[matmul]``) and with kernel B5 (``[banded]``), each held as in
    phase 4, with its stages and profile as in phase 5, and compared with
@@ -53,17 +56,23 @@ SCALAR_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 TENSOR_BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 BAD2_LIMIT_PCT = 10.0
 
-KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it)
+KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
+             #          the CUDA function the profiler names)
     "cross_sum": ("adcensus_torch/csrc/cross_sum.cu",
-                  "adcensus_tpu/ops/cross_sum_pallas.py:77", "main"),
+                  "adcensus_tpu/ops/cross_sum_pallas.py:77", "main",
+                  "cross_pass_kernel"),
     "scanline": ("adcensus_torch/csrc/scanline.cu",
-                 "adcensus_tpu/ops/scanline_pallas.py:75", "main"),
+                 "adcensus_tpu/ops/scanline_pallas.py:75", "main",
+                 "scanline_kernel"),
     "region_vote": ("adcensus_torch/csrc/region_vote.cu",
-                    "adcensus_tpu/ops/region_vote_pallas.py:47", "main"),
+                    "adcensus_tpu/ops/region_vote_pallas.py:47", "main",
+                    "region_vote_kernel"),
     "ray_interp": ("adcensus_torch/csrc/ray_interp.cu",
-                   "adcensus_tpu/ops/interp_pallas.py:56", "main"),
+                   "adcensus_tpu/ops/interp_pallas.py:56", "main",
+                   "ray_interp_kernel"),
     "band_mm": ("adcensus_torch/csrc/band_mm.cu",
-                "adcensus_tpu/ops/band_mm_pallas.py:132", "banded"),
+                "adcensus_tpu/ops/band_mm_pallas.py:132", "banded",
+                "band_kernel"),
 }
 # B5's work is the TPU kernel's bf16 products, which the card can run on
 # its tensor cores: its bound counts operations at that rate
@@ -73,7 +82,7 @@ OPS_PER_S = {"band_mm": TENSOR_BF16_OPS_PER_S}
 # or None for at least one)
 PATHS = {
     "main": ("roll", None, {"cross_sum": None, "scanline": None,
-                            "region_vote": None, "ray_interp": None,
+                            "region_vote": 10, "ray_interp": None,
                             "band_mm": 0}),
     "matmul": ("matmul", None, {"cross_sum": 0, "region_vote": 0,
                                 "band_mm": 0, "scanline": 4,
@@ -202,15 +211,14 @@ def kernel_cases(torch, inter, left, opts):
     of the path that runs it. B5's are the [banded] path's: the Cone-size
     cost_init padded as aggregate_banded pads it, and masks from the
     path's own arms."""
-    from adcensus_torch.ops import band_mm, interp, region_vote, scanline
-    from adcensus_torch.stages import aggregate, refine
+    from adcensus_torch.ops import band_mm, interp, scanline
+    from adcensus_torch.stages import refine
     from adcensus_torch.stages import scanline as scan_stage
 
     d, h, w = inter["cost_init"].shape
     hw, dhw = h * w, d * h * w
     arms = inter["arms"]
     max_arm = min(opts.cross_L1, 255)
-    sup_h = aggregate.support_counts(arms, max_arm)[0].float()
     cases = {name: [] for name in KERNELS}
     cases["cross_sum"] = cross_sum_cases(torch, inter["cost_init"], arms,
                                          max_arm, "")
@@ -229,16 +237,10 @@ def kernel_cases(torch, inter, left, opts):
             dhw * 9 + len(flags) * 4, dhw * 9,
         ))
 
-    disp = inter["after_lr_check"]
-    di, valid = refine.vote_indices(disp, opts)
-    args = (di, valid, arms, opts.disp_range, max_arm)
-    cells = int(sup_h.sum())  # horizontal-first region cells
-    cases["region_vote"].append((
-        "first phase",
-        lambda a=args: region_vote.region_vote_stats(*a),
-        lambda a=args: region_vote.region_vote_stats_plain(*a), None,
-        hw * 33, cells + 2 * d * hw,
-    ))
+    cases["region_vote"] = [
+        region_vote_case(torch, label, disp, arms, target, opts)
+        for label, disp, target in first_vote_phases(torch, inter, opts)
+    ]
 
     max_search = max(abs(opts.max_disparity), abs(opts.min_disparity))
     offsets = torch.as_tensor(
@@ -316,10 +318,59 @@ def cross_sum_cases(torch, vol, arms, max_arm, label):
     return cases
 
 
-def long_arm_cases(torch, dev, opts):
-    """B1 at Cone size where the arms reach the cap: a seeded random
-    (MAX_D, H, W) float32 volume and the arms of a near-constant image
-    (100 +- 2 a channel), which run to cross_L1 or the border."""
+def first_vote_phases(torch, inter, opts):
+    """(label, disparity, target) of the first iteration's two voting
+    phases on the main path's intermediates, as iterative_region_voting
+    runs them: the mismatch phase on the LR-checked map, then the
+    occlusion phase on the map the mismatch phase filled."""
+    from adcensus_torch.stages import refine
+
+    disp, arms = inter["after_lr_check"], inter["arms"]
+    mism_target = inter["mismatch"] & ~torch.isfinite(disp)
+    filled = refine.region_vote_phase(disp, arms, mism_target, opts)
+    occl_target = inter["occlusion"] & ~torch.isfinite(filled)
+    return [("first mismatch phase", disp, mism_target),
+            ("first occlusion phase", filled, occl_target)]
+
+
+def region_vote_case(torch, label, disp, arms, target, opts):
+    """B3's case for one voting phase on ``disp`` at ``target`` (None:
+    every pixel, the old design's work), as kernel_cases gives it. Its
+    bound with a target: the mask read and the three outputs written over
+    the map (13 B a pixel), each target's di, valid and arms read (21 B);
+    one add per region cell of the targets and 2 * D a target for the
+    reduction. With every pixel a target: 33 B a pixel, one add per region
+    cell and 2 * D a pixel."""
+    from adcensus_torch.ops import region_vote
+    from adcensus_torch.stages import aggregate, refine
+
+    h, w = disp.shape
+    d = opts.disp_range
+    max_arm = min(opts.cross_L1, 255)
+    di, valid = refine.vote_indices(disp, opts)
+    cells = aggregate.support_counts(arms, max_arm)[0]  # horizontal-first
+    if target is None:
+        n = h * w
+        n_bytes, n_ops = n * 33, int(cells.sum()) + 2 * d * n
+    else:
+        n = int(target.sum())
+        n_bytes = h * w * 13 + n * 21
+        n_ops = int(cells[target].sum()) + 2 * d * n
+    args = (di, valid, arms, d, max_arm)
+    return (
+        f"{label} ({n} targets, arms up to {int(arms.max())})",
+        lambda: region_vote.region_vote_stats(*args, target=target),
+        lambda: region_vote.region_vote_stats_plain(*args, target=target),
+        None, n_bytes, n_ops,
+    )
+
+
+def long_arm_cases(torch, dev, opts, inter):
+    """B1 and B3 at Cone size where the arms reach the cap, the arms of a
+    near-constant image (100 +- 2 a channel), which run to cross_L1 or the
+    border: B1 on a seeded random (MAX_D, H, W) float32 volume, B3 on the
+    main path's first mismatch phase, whose regions grow as
+    (2 * arm + 1)^2."""
     import numpy as np
 
     from adcensus_torch.stages import arms as arms_stage
@@ -328,8 +379,13 @@ def long_arm_cases(torch, dev, opts):
     image = (100 + rng.integers(-2, 3, size=(H, W, 3))).astype(np.uint8)
     arms = arms_stage.build_arms(torch.as_tensor(image, device=dev), opts)
     vol = torch.as_tensor(rng.random((MAX_D, H, W), np.float32), device=dev)
-    return cross_sum_cases(torch, vol, arms, min(opts.cross_L1, 255),
-                           "long arms, ")
+    label, disp, target = first_vote_phases(torch, inter, opts)[0]
+    return {
+        "cross_sum": cross_sum_cases(torch, vol, arms,
+                                     min(opts.cross_L1, 255), "long arms, "),
+        "region_vote": [region_vote_case(torch, f"long arms, {label}", disp,
+                                         arms, target, opts)],
+    }
 
 
 def measure_case(torch, name, case):
@@ -521,8 +577,16 @@ def main() -> int:
             "bound_ms": statistics.mean(bs),
             "bound_by": max(set(kinds), key=kinds.count),
         }
-    for case in long_arm_cases(torch, dev, opts):  # printed, not in the JSON
-        measure_case(torch, "cross_sum", case)
+    # printed, not in the JSON: B3 on the old design's work and on a phase
+    # without targets (one pass over the mask), and B1 and B3 at long arms
+    no_target = torch.zeros_like(inter["mismatch"])
+    for label, target in (("every pixel", None), ("empty phase", no_target)):
+        measure_case(torch, "region_vote", region_vote_case(
+            torch, label, inter["after_lr_check"], inter["arms"], target,
+            opts))
+    for name, cases in long_arm_cases(torch, dev, opts, inter).items():
+        for case in cases:
+            measure_case(torch, name, case)
     for hf, ms, err in dense_matmul_note(torch, inter, opts):
         print(f"[note] dense cross_pass_matmul, "
               f"{'horizontal' if hf else 'vertical'}-first: {ms:.4f} ms "
@@ -553,7 +617,7 @@ def main() -> int:
               "1e-3 (validity included)")
 
     kernels = []
-    for name, (source, replaces, path) in KERNELS.items():
+    for name, (source, replaces, path, _) in KERNELS.items():
         r = results[name]
         n = path_launches[path][name]
         print(f"[kernel] {name}: {r['ms']:.4f} ms per launch, plain "
@@ -586,19 +650,22 @@ def where_time_goes(torch, left, right, opts, dev, expect, tag, ms):
         print(f"[profile {tag}] not measured: the profiler recorded no "
               "device activity")
         return
-    busy_ms, top = prof
+    busy_ms, top, hand = prof
     print(f"[profile {tag}] device busy {busy_ms:.3f} ms of the {ms:.3f} ms "
           f"median match ({100.0 * (1.0 - busy_ms / ms):.1f} % idle); "
           "by kernel: "
           + "; ".join(f"{n} {t:.3f} ms x{c}" for n, t, c in top))
+    print(f"[profile {tag}] hand-written kernels: "
+          + "; ".join(f"{n} {t:.4f} ms x{c}" for n, (t, c) in hand.items()))
 
 
 def device_profile(torch, left, right, opts, dev, tag="main",
                    top_n: int = 12):
     """Device time of one match on path ``tag`` from torch.profiler: the
-    union of its kernels' intervals (ms), and the ``top_n`` kernels by
-    total device time as (name, ms, calls); None when the profiler sees
-    no device."""
+    union of its kernels' intervals (ms), the ``top_n`` kernels by total
+    device time as (name, ms, calls), and {kernel: (ms, calls)} summed for
+    each hand-written kernel of KERNELS, in or out of the top; None when
+    the profiler sees no device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -626,7 +693,11 @@ def device_profile(torch, left, right, opts, dev, tag="main",
         t, c = per_name.get(name, (0.0, 0))
         per_name[name] = (t + (e - s) / 1e3, c + 1)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top_n]
-    return busy_us / 1e3, [(n[:60], t, c) for n, (t, c) in top]
+    hand = {}
+    for kernel, (*_, symbol) in KERNELS.items():
+        runs = [(t, c) for n, (t, c) in per_name.items() if symbol in n]
+        hand[kernel] = (sum(t for t, _ in runs), sum(c for _, c in runs))
+    return busy_us / 1e3, [(n[:60], t, c) for n, (t, c) in top], hand
 
 
 def stage_breakdown(torch, left, right, opts, expect, tag="main"):

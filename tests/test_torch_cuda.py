@@ -6,7 +6,10 @@ geometries, rays longer than the image, a negative min_disparity, B5's
 window margins of 64 to 256 and D padded to 8; and the whole match on
 each backend against its plain-version pipeline. B1's cases cover its
 tiles: partial and one-pixel tiles, data-dependent halos that change
-from tile to tile, launch geometries other than the default.
+from tile to tile, launch geometries other than the default. B3's cover a
+voting phase's targets: empty, sparse, clustered and full, partial runs
+of pixels, other launch geometries, and the voting stage under sync debug
+mode "error".
 
 Needs a CUDA card and nvcc; skips without a card. This file imports no
 JAX, so on the GPU host it runs without the JAX test configuration:
@@ -22,6 +25,7 @@ from adcensus_torch.ops import (
     _build, band_mm, cross_sum, interp, region_vote, scanline,
 )
 from adcensus_torch.stages import aggregate, arms, pipeline, refine
+from adcensus_torch.stages import cost as cost_stage
 from adcensus_torch.stages import scanline as scan_stage
 from adcensus_torch.synthetic import two_layer_pair
 from chip_smoke import plain_versions
@@ -239,6 +243,7 @@ def test_scanline_misaligned_inputs(dev, cost_shift, code_shift, axis,
 
 @pytest.mark.parametrize("d", [3, 64, 256])
 def test_region_vote_wide_and_long(dev, d):
+    """Every pixel a target (target=None), arms beyond 127."""
     a = _long_arms(dev, h=30, w=160, cap=150)
     rng = np.random.default_rng(d)
     di = torch.as_tensor(rng.integers(0, d, a.shape[:2], np.int32),
@@ -248,6 +253,116 @@ def test_region_vote_wide_and_long(dev, d):
     for k, p in zip(region_vote.region_vote_stats(*args),
                     region_vote.region_vote_stats_plain(*args)):
         _assert_bitwise(k, p)
+
+
+def _vote_inputs(dev, d, h, w, max_arm, target_kind, seed):
+    """Seeded di in [0, d), 70 % valid, arms up to ``max_arm`` (those of a
+    near-constant image for caps beyond 127, else random) and a target:
+    "empty", a density such as "0.1%", "all", or a filled rectangle."""
+    rng = np.random.default_rng(seed)
+    if max_arm > 127:
+        a = _long_arms(dev, h, w, cap=max_arm)
+    else:
+        a = torch.as_tensor(_random_arms(rng, h, w, max_arm), device=dev)
+    di = torch.as_tensor(rng.integers(0, d, (h, w), np.int32), device=dev)
+    valid = torch.as_tensor(rng.random((h, w)) < 0.7, device=dev)
+    if target_kind == "rectangle":
+        target = np.zeros((h, w), bool)
+        target[h // 4:3 * h // 4 + 1, w // 3:2 * w // 3 + 1] = True
+    else:
+        density = {"empty": 0.0, "all": 1.0}.get(target_kind)
+        if density is None:
+            density = float(target_kind.rstrip("%")) / 100
+        target = rng.random((h, w)) < density
+    return di, valid, a, torch.as_tensor(target, device=dev)
+
+
+@pytest.mark.parametrize("max_arm", [0, 34, 200])
+@pytest.mark.parametrize("d", [1, 3, 64, 256])
+@pytest.mark.parametrize("target_kind",
+                         ["empty", "0.1%", "5%", "all", "rectangle"])
+def test_region_vote_targets(dev, target_kind, d, max_arm):
+    """B3 at a phase's targets: statistics there, zeros elsewhere, on
+    maps that end in a partial run of pixels (37x70 and 40x300)."""
+    h, w = (40, 300) if max_arm > 127 else (37, 70)
+    di, valid, a, target = _vote_inputs(dev, d, h, w, max_arm, target_kind,
+                                        seed=d + max_arm)
+    args = (di, valid, a, d, max_arm)
+    _build.reset_launches()
+    out = region_vote.region_vote_stats(*args, target=target)
+    assert _build.launches["region_vote"] == 1
+    for k, p in zip(out, region_vote.region_vote_stats_plain(*args,
+                                                              target=target)):
+        _assert_bitwise(k, p)
+
+
+@pytest.mark.parametrize("h,w", [(1, 1), (1, 50), (50, 1), (5, 7), (17, 259)])
+def test_region_vote_odd_shapes(dev, h, w):
+    di, valid, a, target = _vote_inputs(dev, 64, h, w, 10, "5%", seed=h + w)
+    target[0, 0] = True
+    args = (di, valid, a, 64, 10)
+    for k, p in zip(region_vote.region_vote_stats(*args, target=target),
+                    region_vote.region_vote_stats_plain(*args,
+                                                        target=target)):
+        _assert_bitwise(k, p)
+
+
+@pytest.mark.parametrize("pixels,warps", [(32, 1), (100, 3), (64, 2),
+                                          (300, 7), (1024, 32)])
+@pytest.mark.parametrize("target_kind", ["5%", "rectangle", "all"])
+def test_region_vote_other_geometries(dev, pixels, warps, target_kind):
+    """B3 at launch geometries region_vote_geometry does not pick: runs of
+    pixels that are not a multiple of 32, more warps than a run's steps,
+    one warp for many targets."""
+    d, max_arm = 40, 34
+    di, valid, a, target = _vote_inputs(dev, d, 45, 75, max_arm,
+                                        target_kind, seed=pixels)
+    args = (di, valid, a, d, max_arm)
+    geometry = (pixels, warps, region_vote.region_vote_smem(pixels, warps, d))
+    for k, p in zip(region_vote.launch_pass(*args, target, geometry),
+                    region_vote.region_vote_stats_plain(*args,
+                                                        target=target)):
+        _assert_bitwise(k, p)
+
+
+def test_region_vote_refuses_what_does_not_fit(dev):
+    """No fallback: a histogram too long for one warp's shared memory
+    raises in the wrapper, and a geometry short of shared memory is
+    refused by the kernel's entry point."""
+    di, valid, a, target = _vote_inputs(dev, 8, 20, 30, 5, "5%", seed=0)
+    with pytest.raises(ValueError, match="region_vote"):
+        region_vote.region_vote_stats(di, valid, a, 60_000, 5, target=target)
+    smem = region_vote.region_vote_smem(64, 2, 8)
+    with pytest.raises(RuntimeError, match="region_vote"):
+        region_vote.launch_pass(di, valid, a, 8, 5, target,
+                                (64, 2, smem - 4))
+
+
+def test_region_vote_stage_syncs_no_host(dev):
+    """The voting stage on the card makes no device-to-host transfer: it
+    runs under sync debug mode "error", launches B3 in all ten phases,
+    and equals the plain versions bitwise."""
+    left, right, _ = two_layer_pair(60, 200, 4, 9, seed=3)
+    opts = ADCensusOptions(max_disparity=16)
+    lt, rt = (torch.as_tensor(x, device=dev) for x in (left, right))
+    inter = pipeline.match_core(
+        lt, rt, cost_stage.compute_gray(lt), cost_stage.compute_gray(rt),
+        opts, return_intermediates=True,
+    )
+    _, occl, mism = refine.outlier_detection(
+        inter["disp_left_raw"], inter["disp_right_raw"], opts)
+    args = (inter["after_lr_check"], inter["arms"], occl, mism, opts)
+    _build.build(["region_vote"])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = refine.iterative_region_voting(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.launches["region_vote"] == 10
+    with plain_versions():
+        _assert_bitwise(out, refine.iterative_region_voting(*args))
 
 
 @pytest.mark.parametrize("max_search", [8, 256])

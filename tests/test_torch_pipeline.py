@@ -24,23 +24,45 @@ from adcensus_tpu.stages import pipeline as jax_pipeline
 OPTS = dict(max_disparity=16, cross_L1=8, cross_L2=4)
 
 
+def _jax_match(left, right, opts):
+    """One eager JAX match_core with intermediates, as numpy arrays."""
+    jl, jr = jnp.asarray(left), jnp.asarray(right)
+    out = jax_pipeline.match_core(
+        jl, jr, jax_cost.compute_gray(jl), jax_cost.compute_gray(jr),
+        JaxOptions(**opts), return_intermediates=True, use_pallas=False,
+    )
+    return {k: np.array(v) for k, v in out.items()}
+
+
 @pytest.fixture(scope="module")
 def scene():
     """One eager JAX match of a seeded 32x48 pair, with intermediates."""
     left, right, gt = two_layer_pair(32, 48, 4, 9, seed=1)
-    jl, jr = jnp.asarray(left), jnp.asarray(right)
-    out = jax_pipeline.match_core(
-        jl, jr, jax_cost.compute_gray(jl), jax_cost.compute_gray(jr),
-        JaxOptions(**OPTS), return_intermediates=True, use_pallas=False,
-    )
-    return left, right, gt, {k: np.array(v) for k, v in out.items()}
+    return left, right, gt, _jax_match(left, right, OPTS)
 
 
-def test_chained_stages_bitwise_from_jax_cost(scene):
+# Option sets of the chained-stage test, each one eager JAX match of the
+# scene's pair: today's options, a negative min_disparity (same D), and
+# voting thresholds low enough that voting fills more pixels
+CHAINED_CASES = {
+    "default": OPTS,
+    "negative_min_disparity": dict(OPTS, min_disparity=-3, max_disparity=13),
+    "low_voting_thresholds": dict(OPTS, irv_ts=2, irv_th=0.2),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAINED_CASES))
+def test_chained_stages_bitwise_from_jax_cost(scene, case):
     """From JAX's cost_init, the port's aggregation, scanline, WTA and
     refinement give JAX's final disparity bit for bit."""
     left, right, _, inter = scene
-    opts = ADCensusOptions(**OPTS)
+    opts_kw = CHAINED_CASES[case]
+    if case != "default":
+        default_holes = np.isinf(inter["after_voting"]).sum()
+        inter = _jax_match(left, right, opts_kw)
+        if case == "low_voting_thresholds":
+            assert np.isinf(inter["after_voting"]).sum() < default_holes
+    opts = ADCensusOptions(**opts_kw)
     lt, rt = torch.as_tensor(left), torch.as_tensor(right)
     arms = torch.as_tensor(inter["arms"])
     vol = torch_agg.aggregate(torch.as_tensor(inter["cost_init"]), arms, opts)

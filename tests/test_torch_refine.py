@@ -96,20 +96,90 @@ def test_vote_indices_exact(scene):
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))
 
 
+def _long_vote_inputs():
+    """A 12x160 map with arms up to 150, clipped to the border."""
+    rng = np.random.default_rng(150)
+    h, w = 12, 160
+    xx = np.arange(w)[None, :].repeat(h, 0)
+    yy = np.arange(h)[:, None].repeat(w, 1)
+    border = (xx, w - 1 - xx, yy, h - 1 - yy)
+    arms = np.stack([np.minimum(rng.integers(0, 151, (h, w)), border[k])
+                     for k in range(4)], axis=-1).astype(np.int32)
+    assert arms[..., :2].max() > 127
+    return (rng.integers(0, 16, (h, w)).astype(np.int32),
+            rng.random((h, w)) < 0.7, arms)
+
+
+# (target, max_arm, d_range): the whole map (target=None), the scene's
+# first mismatch phase, a seeded 5 % random target, no target, every
+# pixel; arms up to 150 (JAX's Pallas route takes its jnp branch past 127);
+# a single disparity
+VOTE_CASES = {
+    "none": ("none", MAX_ARM, 16),
+    "mismatch": ("mismatch", MAX_ARM, 16),
+    "random5": ("random5", MAX_ARM, 16),
+    "empty": ("empty", MAX_ARM, 16),
+    "all": ("all", MAX_ARM, 16),
+    "arm150": ("random5", 150, 16),
+    "d1": ("random5", MAX_ARM, 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VOTE_CASES))
 @pytest.mark.parametrize("use_pallas", [False, True])
-def test_region_vote_plain_exact(scene, use_pallas):
+def test_region_vote_plain_exact(scene, use_pallas, case):
     """Plain B3 == region_vote_stats' one-hot branch (use_pallas=False)
-    and == the Pallas kernel in interpret mode (use_pallas=True)."""
-    di, valid, arms = _vote_inputs(scene)
+    and == the Pallas kernel in interpret mode (use_pallas=True) at the
+    target pixels, with zeros elsewhere."""
+    kind, max_arm, d_range = VOTE_CASES[case]
+    if max_arm > MAX_ARM:
+        di, valid, arms = _long_vote_inputs()
+    else:
+        di, valid, arms = _vote_inputs(scene)
+    di = np.minimum(di, d_range - 1)
+    target = {
+        "none": lambda: None,
+        "mismatch": lambda: scene[1]["mismatch"] & ~valid,
+        "random5": lambda: np.random.default_rng(5).random(di.shape) < 0.05,
+        "empty": lambda: np.zeros(di.shape, bool),
+        "all": lambda: np.ones(di.shape, bool),
+    }[kind]()
+    assert target is None or kind in ("empty", "all") or (
+        target.any() and not target.all())
     ref = jax_vote.region_vote_stats(
-        jnp.asarray(di), jnp.asarray(valid), jnp.asarray(arms), 16, MAX_ARM,
-        use_pallas=use_pallas,
+        jnp.asarray(di), jnp.asarray(valid), jnp.asarray(arms), d_range,
+        max_arm, use_pallas=use_pallas,
     )
-    ours = torch_vote.region_vote_stats(_t(di), _t(valid), _t(arms), 16,
-                                        MAX_ARM)
+    ours = torch_vote.region_vote_stats(
+        _t(di), _t(valid), _t(arms), d_range, max_arm,
+        target=None if target is None else _t(target),
+    )
     for o, r in zip(ours, ref):
         assert o.dtype == torch.int32
-        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+        want = np.asarray(r) if target is None else np.where(target, r, 0)
+        np.testing.assert_array_equal(o.numpy(), want)
+
+
+@pytest.mark.parametrize("kind", ["empty", "sparse"])
+def test_region_vote_phase_exact(scene, kind):
+    """One phase == JAX's region_vote_phase bit for bit. The port runs the
+    phase whatever its target; an empty target returns ``disp``
+    unchanged, as JAX's lax.cond skip does."""
+    _, inter = scene
+    disp, arms = inter["after_lr_check"], inter["arms"]
+    target = inter["mismatch"] & np.isinf(disp)
+    if kind == "empty":
+        target = np.zeros_like(target)
+    ref = np.asarray(jax_refine.region_vote_phase(
+        jnp.asarray(disp), jnp.asarray(arms), jnp.asarray(target),
+        JaxOptions(**OPTS), use_pallas=False,
+    ))
+    ours = torch_refine.region_vote_phase(
+        _t(disp), _t(arms), _t(target), ADCensusOptions(**OPTS)
+    ).numpy()
+    np.testing.assert_array_equal(_bits(ours), _bits(ref))
+    filled = (_bits(ours) != _bits(disp)).sum()
+    assert (filled == 0) if kind == "empty" else (filled > 0)
 
 
 def test_iterative_region_voting_exact(scene):
