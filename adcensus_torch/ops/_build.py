@@ -39,7 +39,8 @@ SIGNATURES = {
     "scanline": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
                  _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "region_vote": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "ray_interp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "ray_interp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _P),
     "band_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 

@@ -1,9 +1,10 @@
 """Kernel B4: the 16-ray proper-interpolation fill search.
 
 Port of ``adcensus_tpu/ops/interp_pallas.py``. ``ray_interp`` launches
-``csrc/ray_interp.cu`` for a CUDA tensor and runs ``ray_interp_plain``
-for a CPU tensor: the port of ``stages/refine.py:_first_valid_along_rays``
-plus the cross-ray selection at ``stages/refine.py:490-502``
+``csrc/ray_interp.cu`` for a CUDA tensor, with the launch geometry of
+``ray_interp_geometry``, and runs ``ray_interp_plain`` for a CPU tensor:
+the port of ``stages/refine.py:_first_valid_along_rays`` plus the
+cross-ray selection at ``stages/refine.py:490-502``
 (multistep_refiner.cpp:229-305).
 """
 from __future__ import annotations
@@ -15,6 +16,39 @@ import torch
 from adcensus_torch.config import LARGE_FLOAT
 from adcensus_torch.ops import _build
 from adcensus_torch.ops.basic import color_absdiff_sum, kernels_for
+
+CHUNKS = (1, 2, 4, 8)  # probes in flight a lane, as csrc/ray_interp.cu
+                       # compiles them
+# A block's run of pixels, its warps (two targets each) and the probes in
+# flight a lane. Measured fastest on the H100 at the Cone size's two
+# interpolation phases and at long rays (sweep_ray_interp.py, PERF.md).
+GEOMETRY = (128, 8, 4)
+
+
+def ray_interp_smem(pixels: int) -> int:
+    """Dynamic shared bytes of kernel B4 at a geometry: the block's target
+    list. The same formula is in csrc/ray_interp.cu."""
+    return 4 * pixels
+
+
+def ray_interp_geometry(h: int, w: int, n_rays: int, n_steps: int):
+    """Launch geometry of kernel B4 for an (H, W) map and an (n_rays,
+    n_steps) offset table: (pixels a block, warps a block, probes in
+    flight a lane, dynamic shared bytes), GEOMETRY whatever the size.
+    Raises ValueError for what the kernel cannot index: an empty map,
+    H * W of 2^31 or more, no rays, or a table of 2^30 offsets or
+    more."""
+    if h < 1 or w < 1 or n_rays < 1 or n_steps < 0:
+        raise ValueError(f"ray_interp needs H, W, n_rays >= 1 and n_steps "
+                         f">= 0, got {h}, {w}, {n_rays}, {n_steps}")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"ray_interp indexes the map in 32 bits: H*W = "
+                         f"{h * w} is too large")
+    if n_rays * n_steps >= 2 ** 30:
+        raise ValueError(f"ray_interp indexes the table in 32 bits: "
+                         f"{n_rays} x {n_steps} offsets is too many")
+    pixels, warps, k = GEOMETRY
+    return pixels, warps, k, ray_interp_smem(pixels)
 
 
 def _first_valid_along_rays(
@@ -117,13 +151,26 @@ def ray_interp(
         _build.check(name, t, dtype, shape, disp.device)
     if not kernels_for(disp):
         return ray_interp_plain(disp, left, offsets, target, is_mismatch)
+    geometry = ray_interp_geometry(h, w, n_rays, n_steps)
+    return launch_pass(disp, left, offsets, target, is_mismatch, geometry)
+
+
+def launch_pass(disp, left, offsets, target, is_mismatch, geometry):
+    """Launch kernel B4 on checked CUDA tensors with ``geometry`` =
+    (pixels a block, warps a block, probes in flight, shared bytes);
+    ``ray_interp`` gives it ``ray_interp_geometry``'s, the card tests
+    others."""
+    h, w = disp.shape
+    n_rays, n_steps, _ = offsets.shape
+    if offsets.data_ptr() % 8:  # the kernel reads (dy, dx) as one int2
+        offsets = offsets.clone()
     found = torch.empty((h, w), dtype=torch.bool, device=disp.device)
     fill = torch.empty((h, w), dtype=torch.float32, device=disp.device)
     _build.launch(
         "ray_interp",
         disp.data_ptr(), left.data_ptr(), target.data_ptr(),
         offsets.data_ptr(), found.data_ptr(), fill.data_ptr(),
-        h, w, n_rays, n_steps, int(is_mismatch),
+        h, w, n_rays, n_steps, int(is_mismatch), *geometry,
         torch.cuda.current_stream(disp.device).cuda_stream,
     )
     return found, fill

@@ -197,6 +197,14 @@ def ray_offset_table(max_search: int) -> np.ndarray:
     return table
 
 
+@functools.lru_cache(maxsize=16)
+def ray_offsets(max_search: int, device: torch.device) -> torch.Tensor:
+    """ray_offset_table on ``device``, copied there on first use only, so
+    that the interpolation stage makes no host-to-device copy (and no
+    host sync) a call. Cached: callers must not modify it."""
+    return torch.as_tensor(ray_offset_table(max_search), device=device)
+
+
 def interpolation_fills(
     disp: torch.Tensor,
     left: torch.Tensor,
@@ -214,7 +222,7 @@ def interpolation_fills(
     """
     h, w = disp.shape
     max_search = max(abs(opts.max_disparity), abs(opts.min_disparity))
-    offsets = torch.as_tensor(ray_offset_table(max_search), device=disp.device)
+    offsets = ray_offsets(max_search, disp.device)
     if target is None:
         target = torch.ones((h, w), dtype=torch.bool, device=disp.device)
     _, fill = ray_interp(

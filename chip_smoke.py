@@ -15,7 +15,10 @@ imports nothing of JAX. Phases, each raising on failure:
    of the same function; for B2, the time per scan step); B3 on the first
    iteration's mismatch and occlusion phases at their targets, and also
    on every pixel, the work of its earlier design, beside that work's
-   bound, and on a phase without targets; B1 and B3 also at Cone size
+   bound, and on a phase without targets; B4 on the two interpolation
+   phases, each with its ray-step total and longest ray, and also on a
+   phase without targets, on every pixel (its earlier design's work) and
+   on long rays (D = 256 on a map 98 % +inf); B1 and B3 also at Cone size
    with arms that reach the cap, beside their own bounds; one dense
    band-matrix aggregation iteration beside B1, not bitwise;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
@@ -82,7 +85,7 @@ OPS_PER_S = {"band_mm": TENSOR_BF16_OPS_PER_S}
 # or None for at least one)
 PATHS = {
     "main": ("roll", None, {"cross_sum": None, "scanline": None,
-                            "region_vote": 10, "ray_interp": None,
+                            "region_vote": 10, "ray_interp": 2,
                             "band_mm": 0}),
     "matmul": ("matmul", None, {"cross_sum": 0, "region_vote": 0,
                                 "band_mm": 0, "scanline": 4,
@@ -186,23 +189,35 @@ def band_pass_library(torch, vol_m, mask, pad):
 
 
 def ray_steps(torch, disp, target, offsets):
-    """Ray steps the B4 march needs on these inputs: for every target
-    pixel and ray, the steps up to and including the first finite hit or
-    the last in-image cell."""
+    """What the B4 march needs on these inputs, as (total ray steps,
+    longest ray, (H, W) mask of the cells whose disparity a step reads,
+    (H, W) mask of the cells where a ray hit). A ray's steps run up to and
+    including its first finite hit or in-image NaN, or its last in-image
+    cell. B4 takes a target's 16 rays at once, so a target waits for its
+    longest ray."""
     h, w = disp.shape
+    hw = h * w
+    flat = disp.reshape(-1)
     ys = torch.arange(h, device=disp.device)[None, :, None]
     xs = torch.arange(w, device=disp.device)[None, None, :]
     alive = target[None].expand(offsets.shape[0], h, w).clone()
-    steps = torch.zeros((), dtype=torch.long, device=disp.device)
+    steps = torch.zeros(alive.shape, dtype=torch.int32, device=disp.device)
+    # one slot past the map takes the writes of lanes that read nothing
+    probed = torch.zeros(hw + 1, dtype=torch.bool, device=disp.device)
+    hits = torch.zeros(hw + 1, dtype=torch.bool, device=disp.device)
     for i in range(offsets.shape[1]):
         yy = ys + offsets[:, i, 0].long()[:, None, None]
         xx = xs + offsets[:, i, 1].long()[:, None, None]
         inside = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
         alive = alive & inside
-        steps += alive.sum()
-        v = disp[yy.clamp(0, h - 1), xx.clamp(0, w - 1)]
-        alive = alive & ~torch.isfinite(v)
-    return int(steps)
+        steps += alive
+        q = yy.clamp(0, h - 1) * w + xx.clamp(0, w - 1)
+        v = flat[q]
+        probed[torch.where(alive, q, hw)] = True
+        hits[torch.where(alive & torch.isfinite(v), q, hw)] = True
+        alive = alive & torch.isinf(v)  # +inf is marched through
+    return (int(steps.sum()), int(steps.max()) if steps.numel() else 0,
+            probed[:hw].view(h, w), hits[:hw].view(h, w))
 
 
 def kernel_cases(torch, inter, left, opts):
@@ -211,12 +226,12 @@ def kernel_cases(torch, inter, left, opts):
     of the path that runs it. B5's are the [banded] path's: the Cone-size
     cost_init padded as aggregate_banded pads it, and masks from the
     path's own arms."""
-    from adcensus_torch.ops import band_mm, interp, scanline
+    from adcensus_torch.ops import band_mm, scanline
     from adcensus_torch.stages import refine
     from adcensus_torch.stages import scanline as scan_stage
 
     d, h, w = inter["cost_init"].shape
-    hw, dhw = h * w, d * h * w
+    dhw = d * h * w
     arms = inter["arms"]
     max_arm = min(opts.cross_L1, 255)
     cases = {name: [] for name in KERNELS}
@@ -243,27 +258,12 @@ def kernel_cases(torch, inter, left, opts):
     ]
 
     max_search = max(abs(opts.max_disparity), abs(opts.min_disparity))
-    offsets = torch.as_tensor(
-        refine.ray_offset_table(max_search), device=vol.device
-    )
-    occl, mism = inter["occlusion"], inter["mismatch"]
-    disp = inter["after_voting"]
-    mism_target = mism & ~torch.isfinite(disp)
-    fill_m = refine.interpolation_fills(disp, left, opts, True, mism_target)
-    disp_o = torch.where(mism_target, fill_m, disp)
-    occl_target = occl & ~torch.isfinite(disp_o)
-    for label, dmap, target, is_mismatch in (
-        ("mismatch", disp, mism_target, True),
-        ("occlusion", disp_o, occl_target, False),
-    ):
-        args = (dmap, left, offsets, target, is_mismatch)
-        steps = ray_steps(torch, dmap, target, offsets)
-        cases["ray_interp"].append((
-            f"{label} ({int(target.sum())} targets)",
-            lambda a=args: interp.ray_interp(*a),
-            lambda a=args: interp.ray_interp_plain(*a), None,
-            hw * 13 + offsets.numel() * 4, steps * 4,
-        ))
+    offsets = refine.ray_offsets(max_search, vol.device)
+    cases["ray_interp"] = [
+        ray_interp_case(torch, label, dmap, left, offsets, target, is_mismatch)
+        for label, dmap, target, is_mismatch in interp_phases(torch, inter,
+                                                              left, opts)
+    ]
 
     dp, hp, wp = band_mm.padded_dims(d, h, w)
     masks = band_mm.make_blocked_masks(arms, max_arm, hp, wp)
@@ -363,6 +363,104 @@ def region_vote_case(torch, label, disp, arms, target, opts):
         lambda: region_vote.region_vote_stats_plain(*args, target=target),
         None, n_bytes, n_ops,
     )
+
+
+def interp_phases(torch, inter, left, opts):
+    """(label, disparity, target, is_mismatch) of the two interpolation
+    phases on the main path's intermediates, as proper_interpolation runs
+    them: the mismatch phase on the voted map, then the occlusion phase
+    on the map the mismatch phase filled."""
+    from adcensus_torch.stages import refine
+
+    disp = inter["after_voting"]
+    mism_target = inter["mismatch"] & ~torch.isfinite(disp)
+    fill_m = refine.interpolation_fills(disp, left, opts, True, mism_target)
+    disp_o = torch.where(mism_target, fill_m, disp)
+    occl_target = inter["occlusion"] & ~torch.isfinite(disp_o)
+    return [("mismatch", disp, mism_target, True),
+            ("occlusion", disp_o, occl_target, False)]
+
+
+def ray_interp_case(torch, label, disp, left, offsets, target, is_mismatch):
+    """B4's case for one phase, as kernel_cases gives it, labelled with
+    its targets, ray-step total, cells probed and longest ray. Its bound
+    counts what the function must touch: the target mask read and both
+    outputs written over the map (6 B a pixel); the disparity of each
+    distinct cell a ray step reads (4 B); the offset table, if there is a
+    target; in a mismatch phase the color of each target and of each
+    distinct hit cell (3 B); and 4 operations per ray step."""
+    from adcensus_torch.ops import interp
+
+    h, w = disp.shape
+    steps, longest, probed, hits = ray_steps(torch, disp, target, offsets)
+    n_targets, n_probed = int(target.sum()), int(probed.sum())
+    n_bytes = h * w * 6 + n_probed * 4
+    if n_targets:
+        n_bytes += offsets.numel() * 4
+    if is_mismatch:
+        n_bytes += int((target | hits).sum()) * 3
+    args = (disp, left, offsets, target, is_mismatch)
+    return (
+        f"{label} ({n_targets} targets, {steps} ray steps over {n_probed} "
+        f"cells, longest ray {longest} of {offsets.shape[1]})",
+        lambda: interp.ray_interp(*args),
+        lambda: interp.ray_interp_plain(*args), None,
+        n_bytes, steps * 4,
+    )
+
+
+def long_ray_phase(torch, label, disp, target):
+    """(label, disparity, target, offsets) of B4 on long rays: D = 256 at
+    a phase's targets in its map with every cell +inf but for a seeded
+    2 %."""
+    import numpy as np
+
+    from adcensus_torch.stages import refine
+
+    keep = np.random.default_rng(SEED).random(tuple(disp.shape)) < 0.02
+    sparse = torch.where(torch.as_tensor(keep, device=disp.device), disp,
+                         float("inf"))
+    return (f"long rays, D=256, {label} targets, 98 % +inf", sparse, target,
+            refine.ray_offsets(256, disp.device))
+
+
+def ray_interp_extra_cases(torch, inter, left, opts):
+    """B4 beyond the main path's two phases: a phase without targets (one
+    pass over the mask), every pixel a target of the mismatch phase (the
+    old design's work), and long rays (long_ray_phase)."""
+    from adcensus_torch.stages import refine
+
+    label, disp, target, _ = interp_phases(torch, inter, left, opts)[0]
+    offsets = refine.ray_offsets(max(abs(opts.max_disparity),
+                                     abs(opts.min_disparity)), disp.device)
+    long_label, sparse, long_target, long_offsets = long_ray_phase(
+        torch, label, disp, target)
+    return [
+        ray_interp_case(torch, f"empty {label} phase", disp, left, offsets,
+                        torch.zeros_like(target), True),
+        ray_interp_case(torch, f"every pixel, {label} map", disp, left,
+                        offsets, torch.ones_like(target), True),
+        ray_interp_case(torch, long_label, sparse, left, long_offsets,
+                        long_target, True),
+    ]
+
+
+def main_intermediates(torch, left, right, opts):
+    """The main path's stage outputs on one pair (match_core's
+    intermediates), with the right image and the LR check's occlusion
+    and mismatch masks."""
+    from adcensus_torch.stages import cost as cost_stage
+    from adcensus_torch.stages import pipeline, refine
+
+    inter = pipeline.match_core(
+        left, right, cost_stage.compute_gray(left),
+        cost_stage.compute_gray(right), opts, return_intermediates=True,
+    )
+    inter["right"] = right
+    _, inter["occlusion"], inter["mismatch"] = refine.outlier_detection(
+        inter["disp_left_raw"], inter["disp_right_raw"], opts
+    )
+    return inter
 
 
 def long_arm_cases(torch, dev, opts, inter):
@@ -528,9 +626,6 @@ def main() -> int:
 
     from adcensus_torch.config import ADCensusOptions
     from adcensus_torch.ops import _build
-    from adcensus_torch.stages import cost as cost_stage
-    from adcensus_torch.stages import pipeline
-    from adcensus_torch.stages import refine
     from adcensus_torch.synthetic import two_layer_pair
 
     smi = subprocess.run(
@@ -556,14 +651,7 @@ def main() -> int:
     right = torch.as_tensor(right_np, device=dev)
 
     # 3. kernels against their plain versions, on their paths' inputs
-    inter = pipeline.match_core(
-        left, right, cost_stage.compute_gray(left),
-        cost_stage.compute_gray(right), opts, return_intermediates=True,
-    )
-    inter["right"] = right
-    _, inter["occlusion"], inter["mismatch"] = refine.outlier_detection(
-        inter["disp_left_raw"], inter["disp_right_raw"], opts
-    )
+    inter = main_intermediates(torch, left, right, opts)
     results = {}
     for name, cases in kernel_cases(torch, inter, left, opts).items():
         rows = [measure_case(torch, name, case) for case in cases]
@@ -577,13 +665,16 @@ def main() -> int:
             "bound_ms": statistics.mean(bs),
             "bound_by": max(set(kinds), key=kinds.count),
         }
-    # printed, not in the JSON: B3 on the old design's work and on a phase
-    # without targets (one pass over the mask), and B1 and B3 at long arms
+    # printed, not in the JSON: B3 and B4 on their old designs' work and
+    # on a phase without targets (one pass over the mask), B4 on long
+    # rays, and B1 and B3 at long arms
     no_target = torch.zeros_like(inter["mismatch"])
     for label, target in (("every pixel", None), ("empty phase", no_target)):
         measure_case(torch, "region_vote", region_vote_case(
             torch, label, inter["after_lr_check"], inter["arms"], target,
             opts))
+    for case in ray_interp_extra_cases(torch, inter, left, opts):
+        measure_case(torch, "ray_interp", case)
     for name, cases in long_arm_cases(torch, dev, opts, inter).items():
         for case in cases:
             measure_case(torch, name, case)

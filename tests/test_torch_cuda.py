@@ -9,6 +9,9 @@ tiles: partial and one-pixel tiles, data-dependent halos that change
 from tile to tile, launch geometries other than the default. B3's cover a
 voting phase's targets: empty, sparse, clustered and full, partial runs
 of pixels, other launch geometries, and the voting stage under sync debug
+mode "error". B4's cover the CPU emulation's grid of targets, searches
+and map shapes, in-image NaN, other ray counts and launch geometries, the
+Cone-size pair's own phases, and the interpolation stage under sync debug
 mode "error".
 
 Needs a CUDA card and nvcc; skips without a card. This file imports no
@@ -29,6 +32,8 @@ from adcensus_torch.stages import cost as cost_stage
 from adcensus_torch.stages import scanline as scan_stage
 from adcensus_torch.synthetic import two_layer_pair
 from chip_smoke import plain_versions
+from _ray_cases import CASES as RAY_CASES
+from _ray_cases import case_inputs as ray_case_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -365,21 +370,137 @@ def test_region_vote_stage_syncs_no_host(dev):
         _assert_bitwise(out, refine.iterative_region_voting(*args))
 
 
-@pytest.mark.parametrize("max_search", [8, 256])
+def _ray_args(dev, case, seed=None, nan_share=0.0):
+    """B4's inputs for a case of the CPU emulation's grid, on the card."""
+    return tuple(torch.as_tensor(a, device=dev)
+                 for a in ray_case_inputs(case, seed, nan_share))
+
+
 @pytest.mark.parametrize("is_mismatch", [True, False])
-def test_ray_interp_sparse_map(dev, max_search, is_mismatch):
-    h, w = 50, 70
-    rng = np.random.default_rng(max_search)
-    disp = rng.random((h, w), np.float32) * 64
-    disp[rng.random((h, w)) < 0.6] = np.inf
-    left = rng.integers(0, 256, (h, w, 3), np.uint8)
-    target = rng.random((h, w)) < 0.3
-    offsets = torch.as_tensor(refine.ray_offset_table(max_search), device=dev)
-    args = (torch.as_tensor(disp, device=dev),
-            torch.as_tensor(left, device=dev), offsets,
-            torch.as_tensor(target, device=dev), is_mismatch)
+@pytest.mark.parametrize("case", sorted(RAY_CASES))
+def test_ray_interp_sparse_map(dev, case, is_mismatch):
+    """B4 on the CPU emulation's grid (tests/_ray_cases.py): target
+    densities of 0 to 100 %, a strip, max_search 1 to 256, 1xN and Nx1
+    maps, maps without and with only finite cells. No -0.0 / +0.0 tie:
+    the plain version's amin does not define which zero it returns."""
+    args = _ray_args(dev, case) + (is_mismatch,)
+    _build.reset_launches()
+    out = interp.ray_interp(*args)
+    assert _build.launches["ray_interp"] == 1
+    for k, p in zip(out, interp.ray_interp_plain(*args)):
+        _assert_bitwise(k, p)
+
+
+@pytest.mark.parametrize("is_mismatch", [True, False])
+def test_ray_interp_nan_and_ray_counts(dev, is_mismatch):
+    """An in-image NaN ends a ray; 40 rays (three a lane) and 8 (half the
+    lanes idle)."""
+    args = _ray_args(dev, "search64", seed=5, nan_share=0.1)
+    for k, p in zip(interp.ray_interp(*args, is_mismatch),
+                    interp.ray_interp_plain(*args, is_mismatch)):
+        _assert_bitwise(k, p)
+    disp, left, _, target = _ray_args(dev, "sparse30", seed=2)
+    rng = np.random.default_rng(3)
+    for n_rays in (40, 8):
+        offsets = torch.as_tensor(
+            rng.integers(-3, 4, (n_rays, 6, 2)).astype(np.int32), device=dev)
+        args = (disp, left, offsets, target, is_mismatch)
+        for k, p in zip(interp.ray_interp(*args),
+                        interp.ray_interp_plain(*args)):
+            _assert_bitwise(k, p)
+
+
+@pytest.mark.parametrize("pixels,warps,k", [
+    (32, 1, 1), (100, 3, 8), (64, 2, 2), (1024, 32, 4), (256, 8, 1),
+    (77, 5, 8),
+])
+@pytest.mark.parametrize("case", ["sparse30", "all", "strip", "search256"])
+def test_ray_interp_other_geometries(dev, pixels, warps, k, case):
+    """B4 at launch geometries ray_interp_geometry does not pick: runs of
+    pixels that are not a multiple of 32, one warp for many targets, 1 to
+    8 probes in flight."""
+    disp, left, offsets, target = _ray_args(dev, case)
+    geometry = (pixels, warps, k, interp.ray_interp_smem(pixels))
+    for is_mismatch in (True, False):
+        args = (disp, left, offsets, target, is_mismatch)
+        for a, b in zip(interp.launch_pass(*args, geometry),
+                        interp.ray_interp_plain(*args)):
+            _assert_bitwise(a, b)
+
+
+def test_ray_interp_misaligned_offsets(dev):
+    """A contiguous offset table that starts 4 bytes past an 8-byte
+    boundary: the wrapper hands the kernel an aligned copy."""
+    disp, left, offsets, target = _ray_args(dev, "strip")
+    view = torch.empty(offsets.numel() + 1, dtype=torch.int32,
+                       device=dev)[1:].view(offsets.shape).copy_(offsets)
+    assert view.data_ptr() % 8 == 4
+    for is_mismatch in (True, False):
+        args = (disp, left, view, target, is_mismatch)
+        for k, p in zip(interp.ray_interp(*args),
+                        interp.ray_interp_plain(*args)):
+            _assert_bitwise(k, p)
+
+
+def test_ray_interp_refuses_what_does_not_fit(dev):
+    """No fallback: a geometry short of its list's shared memory, or with
+    a K the kernel does not compile, is refused by the entry point."""
+    disp, left, offsets, target = _ray_args(dev, "sparse30")
+    args = (disp, left, offsets, target, True)
+    for geometry in ((64, 2, 4, 4 * 64 - 4), (64, 2, 3, 4 * 64)):
+        with pytest.raises(RuntimeError, match="ray_interp"):
+            interp.launch_pass(*args, geometry)
+
+
+def _cone_refine_inputs(dev, h=375, w=450, max_d=64):
+    """The synthetic Cone-size pair's refinement inputs as chip_smoke.py
+    makes them: (after_voting, left, occlusion, mismatch, opts)."""
+    left, right, _ = two_layer_pair(h, w, 16, 32, seed=0)
+    opts = ADCensusOptions(max_disparity=max_d)
+    lt, rt = (torch.as_tensor(x, device=dev) for x in (left, right))
+    inter = pipeline.match_core(
+        lt, rt, cost_stage.compute_gray(lt), cost_stage.compute_gray(rt),
+        opts, return_intermediates=True,
+    )
+    _, occl, mism = refine.outlier_detection(
+        inter["disp_left_raw"], inter["disp_right_raw"], opts)
+    return inter["after_voting"], lt, occl, mism, opts
+
+
+def test_ray_interp_cone_phases(dev):
+    """B4 on the Cone-size synthetic pair's own interpolation inputs:
+    the mismatch phase, then the occlusion phase on the map it filled."""
+    disp, left, occl, mism, opts = _cone_refine_inputs(dev)
+    offsets = refine.ray_offsets(opts.max_disparity, disp.device)
+    mism_target = mism & ~torch.isfinite(disp)
+    found, fill = interp.ray_interp(disp, left, offsets, mism_target, True)
+    assert int(mism_target.sum()) > 1000 and bool(found.any())
+    for k, p in zip((found, fill), interp.ray_interp_plain(
+            disp, left, offsets, mism_target, True)):
+        _assert_bitwise(k, p)
+    disp = torch.where(mism_target, fill, disp)
+    occl_target = occl & ~torch.isfinite(disp)
+    args = (disp, left, offsets, occl_target, False)
     for k, p in zip(interp.ray_interp(*args), interp.ray_interp_plain(*args)):
         _assert_bitwise(k, p)
+
+
+def test_interpolation_stage_syncs_no_host(dev):
+    """The interpolation stage on the card makes no host transfer: it
+    runs under sync debug mode "error", launches B4 for both phases, and
+    equals the plain versions bitwise."""
+    args = _cone_refine_inputs(dev, h=60, w=200, max_d=16)
+    refine.proper_interpolation(*args)  # builds B4, caches the table
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = refine.proper_interpolation(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.launches["ray_interp"] == 2
+    with plain_versions():
+        _assert_bitwise(out, refine.proper_interpolation(*args))
 
 
 def test_match_device_equals_plain_pipeline(dev):
