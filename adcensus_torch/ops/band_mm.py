@@ -14,7 +14,9 @@ parts, as in the dense backend. The vertical pass runs the same kernel on
 the (D, W, H)-transposed volume.
 
 ``band_pass`` launches ``csrc/band_mm.cu`` for a CUDA tensor and runs
-``band_pass_plain`` for a CPU tensor; the two agree bitwise. The padding
+``band_pass_plain`` for a CPU tensor; the two agree bitwise, for any
+mask. The kernel takes PAD a multiple of 16 up to 256 (WK up to
+``MAX_WK``); the wrapper raises for another on the card. The padding
 geometry (H and W to multiples of 128, D to 8, PAD, margins) is JAX's, so
 the masks are bitwise JAX's.
 """
@@ -46,6 +48,7 @@ class BlockedMasks(NamedTuple):
 
 
 _NB = 256  # output-block width: the columns that share one window
+MAX_WK = 768  # the widest window csrc/band_mm.cu takes (PAD 256)
 
 
 def _blocked_mask(
@@ -192,14 +195,29 @@ def band_pass(vol_m: torch.Tensor, mask: torch.Tensor, pad: int) -> torch.Tensor
         _build.check(name, t, dtype, shape, vol_m.device)
     if not kernels_for(vol_m):
         return band_pass_plain(vol_m, mask, pad)
-    out = torch.empty((dp, np_, mp), dtype=torch.float32, device=vol_m.device)
+    if pad % 16 or wk > MAX_WK:
+        raise ValueError(
+            f"band_pass on the card takes PAD a multiple of 16 with "
+            f"256 + 2*PAD <= {MAX_WK}, got PAD {pad}"
+        )
+    # the kernel copies 16-byte grains: aligned inputs, and mask rows of
+    # a multiple of 16 columns (zero columns select nothing)
+    mp16 = -(-mp // 16) * 16
+    if mp16 != mp:
+        mask = F.pad(mask, (0, mp16 - mp))
+    elif mask.data_ptr() % 16:
+        mask = mask.clone()
+    if vol_m.data_ptr() % 16:
+        vol_m = vol_m.clone()
+    out = torch.empty((dp, np_, mp16), dtype=torch.float32,
+                      device=vol_m.device)
     _build.launch(
         "band_mm",
         mask.data_ptr(), vol_m.data_ptr(), out.data_ptr(),
-        dp, np_, mp, length, wk,
+        dp, np_, mp16, length, wk,
         torch.cuda.current_stream(vol_m.device).cuda_stream,
     )
-    return out
+    return out if mp16 == mp else out[..., :mp].contiguous()
 
 
 def aggregate_banded(

@@ -18,9 +18,11 @@ imports nothing of JAX. Phases, each raising on failure:
    bound, and on a phase without targets; B4 on the two interpolation
    phases, each with its ray-step total and longest ray, and also on a
    phase without targets, on every pixel (its earlier design's work) and
-   on long rays (D = 256 on a map 98 % +inf); B1 and B3 also at Cone size
-   with arms that reach the cap, beside their own bounds; one dense
-   band-matrix aggregation iteration beside B1, not bitwise;
+   on long rays (D = 256 on a map 98 % +inf); B5 on both passes, each
+   with its mean and largest count of selected slots a column; B1, B3
+   and B5 also at Cone size with arms that reach the cap, beside their
+   own bounds; one dense band-matrix aggregation iteration beside B1, not
+   bitwise;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
    backend), with the launch counts of one match, the match time, bitwise
@@ -56,7 +58,6 @@ SLEEP_CYCLES_PER_S = 2.0e9         # above the H100's top SM clock
 MATCH_RUNS = 7
 MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
-TENSOR_BF16_OPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 BAD2_LIMIT_PCT = 10.0
 
 KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
@@ -77,9 +78,6 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
                 "adcensus_tpu/ops/band_mm_pallas.py:132", "banded",
                 "band_kernel"),
 }
-# B5's work is the TPU kernel's bf16 products, which the card can run on
-# its tensor cores: its bound counts operations at that rate
-OPS_PER_S = {"band_mm": TENSOR_BF16_OPS_PER_S}
 
 # path -> (cross_backend, agg_impl, launches one match must show: a count,
 # or None for at least one)
@@ -96,11 +94,11 @@ PATHS = {
 }
 
 
-def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float):
-    """Least time for the work: bytes over the memory rate or operations
-    over ``ops_per_s``, whichever is larger."""
+def bound_ms(n_bytes: float, n_ops: float):
+    """Least time for the work: bytes over the memory rate or float32
+    operations over the scalar rate, whichever is larger."""
     t_bytes = n_bytes / MEM_BYTES_PER_S
-    t_ops = n_ops / ops_per_s
+    t_ops = n_ops / SCALAR_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -224,9 +222,8 @@ def kernel_cases(torch, inter, left, opts):
     """Per kernel: the calls one match makes, as (label, kernel call,
     plain call, library call or None, bytes, operations), on the inputs
     of the path that runs it. B5's are the [banded] path's: the Cone-size
-    cost_init padded as aggregate_banded pads it, and masks from the
-    path's own arms."""
-    from adcensus_torch.ops import band_mm, scanline
+    cost_init and masks from the path's own arms (band_mm_cases)."""
+    from adcensus_torch.ops import scanline
     from adcensus_torch.stages import refine
     from adcensus_torch.stages import scanline as scan_stage
 
@@ -265,12 +262,28 @@ def kernel_cases(torch, inter, left, opts):
                                                               left, opts)
     ]
 
+    cases["band_mm"] = band_mm_cases(torch, inter["cost_init"], arms,
+                                     max_arm, "")
+    return cases
+
+
+def band_mm_cases(torch, cost, arms, max_arm, label):
+    """B5's cases, both passes of one aggregation iteration as
+    aggregate_banded runs them: ``cost`` padded as it pads it, the masks
+    of ``arms``. Each label gives the mean (over the columns that select
+    any slot) and largest count of selected window slots a column, the
+    slots B5's walk visits. Its bound: the int8 mask and the margined
+    volume read,
+    the output written; two adds (hi and lo) per selected slot and output
+    plane, and one per output."""
+    from adcensus_torch.ops import band_mm
+
+    d, h, w = cost.shape
     dp, hp, wp = band_mm.padded_dims(d, h, w)
     masks = band_mm.make_blocked_masks(arms, max_arm, hp, wp)
-    vol = torch.nn.functional.pad(
-        inter["cost_init"], (0, wp - w, 0, hp - h, 0, dp - d)
-    )
-    for label, vm, mask, pad in (
+    vol = torch.nn.functional.pad(cost, (0, wp - w, 0, hp - h, 0, dp - d))
+    cases = []
+    for direction, vm, mask, pad in (
         ("horizontal", band_mm.with_margins(vol, wp, masks.pad_w),
          masks.mh, masks.pad_w),
         ("vertical", band_mm.with_margins(
@@ -279,13 +292,16 @@ def kernel_cases(torch, inter, left, opts):
     ):
         args = (vm, mask, pad)
         n_out = dp * mask.shape[0] * mask.shape[2]
-        cases["band_mm"].append((
-            f"{label} pass",
+        sel = (mask != 0).sum(1)
+        cases.append((
+            f"{label}{direction} pass (selected slots a column: mean "
+            f"{float(sel[sel > 0].float().mean()):.2f}, largest "
+            f"{int(sel.max())} of {mask.shape[1]})",
             lambda a=args: band_mm.band_pass(*a),
             lambda a=args: band_mm.band_pass_plain(*a),
             lambda a=args: band_pass_library(torch, *a),
             mask.numel() + vm.numel() * 4 + n_out * 4,
-            4 * mask.shape[1] * n_out,  # 2 parts x (multiply, add)
+            2 * dp * int(sel.sum()) + n_out,
         ))
     return cases
 
@@ -464,11 +480,11 @@ def main_intermediates(torch, left, right, opts):
 
 
 def long_arm_cases(torch, dev, opts, inter):
-    """B1 and B3 at Cone size where the arms reach the cap, the arms of a
-    near-constant image (100 +- 2 a channel), which run to cross_L1 or the
-    border: B1 on a seeded random (MAX_D, H, W) float32 volume, B3 on the
-    main path's first mismatch phase, whose regions grow as
-    (2 * arm + 1)^2."""
+    """B1, B3 and B5 at Cone size where the arms reach the cap, the arms of
+    a near-constant image (100 +- 2 a channel), which run to cross_L1 or
+    the border: B1 and B5 on a seeded random (MAX_D, H, W) float32 volume
+    (B5's columns then select up to 69 slots), B3 on the main path's first
+    mismatch phase, whose regions grow as (2 * arm + 1)^2."""
     import numpy as np
 
     from adcensus_torch.stages import arms as arms_stage
@@ -483,6 +499,8 @@ def long_arm_cases(torch, dev, opts, inter):
                                      min(opts.cross_L1, 255), "long arms, "),
         "region_vote": [region_vote_case(torch, f"long arms, {label}", disp,
                                          arms, target, opts)],
+        "band_mm": band_mm_cases(torch, vol, arms, min(opts.cross_L1, 255),
+                                 "long arms, "),
     }
 
 
@@ -498,8 +516,7 @@ def measure_case(torch, name, case):
     err = max(max_abs_err(torch, a, b) for a, b in zip(*outs))
     k_ms = time_ms(torch, kern)
     p_ms = time_ms(torch, plain)
-    b_ms, b_kind = bound_ms(n_bytes, n_ops,
-                            OPS_PER_S.get(name, SCALAR_OPS_PER_S))
+    b_ms, b_kind = bound_ms(n_bytes, n_ops)
     l_ms, lib_note = None, ""
     if library is not None:
         lib_err = float((library() - out_k).abs().max())
@@ -667,7 +684,7 @@ def main() -> int:
         }
     # printed, not in the JSON: B3 and B4 on their old designs' work and
     # on a phase without targets (one pass over the mask), B4 on long
-    # rays, and B1 and B3 at long arms
+    # rays, and B1, B3 and B5 at long arms
     no_target = torch.zeros_like(inter["mismatch"])
     for label, target in (("every pixel", None), ("empty phase", no_target)):
         measure_case(torch, "region_vote", region_vote_case(

@@ -3,7 +3,8 @@ versions on the card, bitwise, at shapes and options the main path of
 chip_smoke.py does not reach: arms beyond 127, D from 1 to 1024, padded
 scan steps and B2's partial chunks and blocks at several launch
 geometries, rays longer than the image, a negative min_disparity, B5's
-window margins of 64 to 256 and D padded to 8; and the whole match on
+window margins of 64 to 256, D padded to 8 and masks that are not
+intervals (tests/_band_cases.py); and the whole match on
 each backend against its plain-version pipeline. B1's cases cover its
 tiles: partial and one-pixel tiles, data-dependent halos that change
 from tile to tile, launch geometries other than the default. B3's cover a
@@ -32,6 +33,8 @@ from adcensus_torch.stages import cost as cost_stage
 from adcensus_torch.stages import scanline as scan_stage
 from adcensus_torch.synthetic import two_layer_pair
 from chip_smoke import plain_versions
+from _band_cases import CASES as BAND_MASK_CASES
+from _band_cases import case_inputs as band_case_inputs
 from _ray_cases import CASES as RAY_CASES
 from _ray_cases import case_inputs as ray_case_inputs
 
@@ -543,10 +546,16 @@ BAND_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(BAND_CASES))
-def test_band_mm_bitwise(dev, case):
-    """B5 against band_pass_plain in both directions, on the padded
-    volume and masks aggregate_banded gives it."""
+def _band_passes(dev, case):
+    """(volume, mask, PAD) of each pass of a case: for BAND_CASES both
+    directions, on the padded volume and masks aggregate_banded gives B5;
+    for a case of tests/_band_cases.py its one pass (a random mask that is
+    not an interval, or an interval mask, on a signed volume with
+    +-0.0)."""
+    if case in BAND_MASK_CASES:
+        vol_m, mask, pad = band_case_inputs(case)
+        return [(torch.as_tensor(vol_m, device=dev),
+                 torch.as_tensor(mask, device=dev), pad)]
     d, h, w, max_arm = BAND_CASES[case]
     rng = np.random.default_rng(d + h)
     cost = torch.as_tensor(rng.random((d, h, w), np.float32) * 2, device=dev)
@@ -554,15 +563,50 @@ def test_band_mm_bitwise(dev, case):
     dp, hp, wp = band_mm.padded_dims(d, h, w)
     masks = band_mm.make_blocked_masks(arms_t, max_arm, hp, wp)
     vol = torch.nn.functional.pad(cost, (0, wp - w, 0, hp - h, 0, dp - d))
-    for vm, mask, pad in (
+    return [
         (band_mm.with_margins(vol, wp, masks.pad_w), masks.mh, masks.pad_w),
         (band_mm.with_margins(vol.transpose(1, 2).contiguous(), hp,
                               masks.pad_h), masks.mv, masks.pad_h),
-    ):
+    ]
+
+
+@pytest.mark.parametrize("case", sorted(BAND_CASES) + sorted(BAND_MASK_CASES))
+def test_band_mm_bitwise(dev, case):
+    """B5 against band_pass_plain: both directions of aggregate_banded's
+    inputs, and random masks of densities 0 to 1 that are not intervals,
+    at PAD 64 to 256."""
+    for vm, mask, pad in _band_passes(dev, case):
         _build.reset_launches()
         out = band_mm.band_pass(vm, mask, pad)
         assert _build.launches["band_mm"] == 1
         _assert_bitwise(out, band_mm.band_pass_plain(vm, mask, pad))
+
+
+def test_band_mm_misaligned_inputs(dev):
+    """A contiguous volume 4 bytes and a mask 1 byte past a 16-byte
+    boundary: the wrapper hands the kernel aligned copies."""
+    vm, mask, pad = _band_passes(dev, "density30")[0]
+    vm_v = torch.empty(vm.numel() + 1, device=dev)[1:].view(vm.shape)
+    mask_v = torch.empty(mask.numel() + 1, dtype=torch.int8,
+                         device=dev)[1:].view(mask.shape)
+    vm_v.copy_(vm)
+    mask_v.copy_(mask)
+    assert vm_v.data_ptr() % 16 == 4 and mask_v.data_ptr() % 16 == 1
+    _assert_bitwise(band_mm.band_pass(vm_v, mask_v, pad),
+                    band_mm.band_pass_plain(vm, mask, pad))
+
+
+@pytest.mark.parametrize("pad", [320, 8])
+def test_band_mm_refuses_what_it_was_not_built_for(dev, pad):
+    """No fallback: a window wider than MAX_WK (PAD 320), or a PAD that is
+    not a multiple of 16, raises on the card."""
+    vol_m = torch.zeros((8, 2, 256 + 2 * pad), device=dev)
+    mask = torch.zeros((2, 256 + 2 * pad, 128), dtype=torch.int8,
+                       device=dev)
+    _build.reset_launches()
+    with pytest.raises(ValueError, match="band_pass"):
+        band_mm.band_pass(vol_m, mask, pad)
+    assert _build.launches["band_mm"] == 0
 
 
 def test_aggregate_banded_close_to_plain_cross_sum(dev):
