@@ -1,0 +1,2 @@
+"""Run-time support of the entry points: the CUDA graphs of the multi-pair
+pipelines."""

@@ -34,7 +34,19 @@ imports nothing of JAX. Phases, each raising on failure:
 6. backends: the same match with ``cross_backend="matmul"``, dense
    (``[matmul]``) and with kernel B5 (``[banded]``), each held as in
    phase 4, with its stages and profile as in phase 5, and compared with
-   the main path's disparity.
+   the main path's disparity;
+7. batched: ``match_batched_device`` on 8 distinct seeded Cone-size pairs
+   (seeds 0 to 7) on the roll and banded paths, each group a CUDA graph
+   replay: the group the budget picks, the first call's peak allocated
+   memory, the memory the graph holds against ``pipeline.pair_bytes``,
+   the launches counted at capture (g times one match's), each output
+   bitwise equal to ``match_device`` on its pair, host-clock ms a pair
+   against a loop of ``match_device``, the device's busy time in a
+   profiled call, the same group captured on one stream (roll), and a
+   call with group 4 (two replays);
+8. hetero: ``match_hetero_device`` on a Wood2-size pair (555x653, D=128)
+   and the Cone-size pair in one graph, held as in phase 7, and the
+   call's ms against two ``match_device`` calls.
 
 The last two lines of its output are a JSON object of per-kernel numbers
 and ``{"ok": true, "device": {...}}``.
@@ -59,6 +71,9 @@ MATCH_RUNS = 7
 MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 BAD2_LIMIT_PCT = 10.0
+BATCH = 8                          # [batched]: pairs of seeds 0 .. BATCH-1
+HALF_GROUP = 4                     # [batched]: the group of two replays
+WOOD2 = (555, 653, 32, 64, 8, 128)  # [hetero]: H, W, d_bg, d_fg, seed, D
 
 KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
              #          the CUDA function the profiler names)
@@ -724,6 +739,12 @@ def main() -> int:
               f"bitwise, {100.0 * float(near.float().mean()):.2f} % within "
               "1e-3 (validity included)")
 
+    # 7. the batched pipeline, each group a CUDA graph replay
+    drive_batched(torch, dev, opts, path_launches, card)
+
+    # 8. the mixed-shape pipeline: Wood2-size and Cone-size in one graph
+    drive_hetero(torch, dev, left, right, opts, path_launches, card)
+
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         r = results[name]
@@ -747,18 +768,220 @@ def main() -> int:
     return 0
 
 
-def where_time_goes(torch, left, right, opts, dev, expect, tag, ms):
-    """Print path ``tag``'s stage breakdown and device profile; ``ms`` is
-    its median match time."""
-    stage_ms = stage_breakdown(torch, left, right, opts, expect, tag)
-    print(f"[stages {tag}] "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
-    prof = device_profile(torch, left, right, opts, dev, tag)
+def host_ms(torch, fn, runs: int = MATCH_RUNS):
+    """(median, min, max) host-clock ms of ``fn()`` over ``runs`` calls
+    after one warm-up, each ended by ``torch.cuda.synchronize()``."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), min(times), max(times)
+
+
+def assert_bitwise(torch, tag, a, b):
+    if a.shape != b.shape or not torch.equal(a.view(torch.int32),
+                                             b.view(torch.int32)):
+        raise AssertionError(f"{tag} differs from match_device")
+
+
+def first_call_memory(torch, dev, fn):
+    """(result, peak allocated bytes, bytes reserved after) of a first
+    ``fn()`` with no graph cached: the graph's pool stays reserved."""
+    from adcensus_torch.utils import graphs
+
+    graphs.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    reserved = torch.cuda.memory_reserved(dev)
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, torch.cuda.max_memory_allocated(dev) - base,
+            torch.cuda.memory_reserved(dev) - reserved)
+
+
+def print_call_profile(torch, tag, ms, pairs, fn):
+    """Print the device's busy time in one ``fn()`` of ``pairs`` pairs
+    against its median ``ms``, and its heaviest kernels."""
+    prof = device_profile(torch, fn, top_n=6)
     if prof is None:
         print(f"[profile {tag}] not measured: the profiler recorded no "
               "device activity")
         return
-    busy_ms, top, hand = prof
+    busy_ms, top, hand, call_ms = prof
+    print(f"[profile {tag}] device busy {busy_ms:.3f} ms in a profiled call "
+          f"of {call_ms:.3f} ms ({100.0 * (1.0 - busy_ms / call_ms):.1f} % "
+          f"idle; the median call takes {ms:.3f} ms), {busy_ms / pairs:.3f} "
+          "ms a pair; by kernel: "
+          + "; ".join(f"{n} {t:.3f} ms x{c}" for n, t, c in top)
+          + "; hand-written: "
+          + "; ".join(f"{n} {t:.4f} ms x{c}" for n, (t, c) in hand.items()))
+
+
+def drive_batched(torch, dev, opts, path_launches, card):
+    """Phase 7 on the [main] and [banded] paths: 8 Cone-size pairs through
+    match_batched_device, each group one CUDA graph replay. Raises unless
+    every output is bitwise match_device on its pair and the capture
+    launched g times what one match of the path launched."""
+    import numpy as np
+
+    from adcensus_torch.stages import pipeline
+    from adcensus_torch.synthetic import two_layer_pair
+    from adcensus_torch.utils import graphs
+
+    pairs = [two_layer_pair(H, W, D_BG, D_FG, seed=s)[:2]
+             for s in range(BATCH)]
+    lefts, rights = (torch.as_tensor(np.stack(side), device=dev)
+                     for side in zip(*pairs))
+    volume = opts.disp_range * H * W * 4
+    for tag in ("main", "banded"):
+        cross_backend, agg_impl, _ = PATHS[tag]
+        kwargs = dict(device=dev, cross_backend=cross_backend,
+                      agg_impl=agg_impl)
+        graphs.clear()
+        g = pipeline._batch_group_size(BATCH, H, W, opts, dev,
+                                       cross_backend=cross_backend)
+        print(f"[batched {tag}] {BATCH} pairs {H}x{W} d=[0,{MAX_D}): group "
+              f"{g} of {BATCH} in a budget of "
+              f"{pipeline.group_budget(dev) / 2**30:.2f} GiB "
+              f"({pipeline.GROUP_MEMORY_SHARE} of the free memory); card "
+              f"{card}")
+        held_bound = g * pipeline.pair_bytes(H, W, opts, dev, cross_backend)
+        out, peak, held = first_call_memory(
+            torch, dev, lambda: pipeline.match_batched_device(
+                lefts, rights, opts, **kwargs))
+        if held > held_bound:
+            raise AssertionError(
+                f"[batched {tag}] the graph holds {held / 2**20:.1f} MiB, "
+                f"above the estimate {held_bound / 2**20:.1f} MiB")
+        (entry,) = graphs.cached()
+        want = {k: g * n for k, n in path_launches[tag].items()}
+        if entry.launches != want:
+            raise AssertionError(f"[batched {tag}] the capture launched "
+                                 f"{entry.launches}, expected {want}")
+        for i in range(BATCH):
+            assert_bitwise(torch, f"[batched {tag}] pair {i}", out[i],
+                           pipeline.match_device(lefts[i], rights[i], opts,
+                                                 **kwargs))
+        half = pipeline.match_batched_device(lefts, rights, opts,
+                                             group=HALF_GROUP, **kwargs)
+        assert_bitwise(torch, f"[batched {tag}] group {HALF_GROUP}", half,
+                       out)
+        graph_ms = host_ms(torch, lambda: pipeline.match_batched_device(
+            lefts, rights, opts, **kwargs))
+        loop_ms = host_ms(torch, lambda: [
+            pipeline.match_device(lefts[i], rights[i], opts, **kwargs)
+            for i in range(BATCH)])
+        print(f"[batched {tag}] first call: peak allocated {peak / 2**20:.1f}"
+              f" MiB ({peak / volume:.1f} volumes of {volume / 2**20:.1f} "
+              "MiB: one pair's, as the capture frees a branch's tensors "
+              "before the next branch runs; JAX's rule takes "
+              f"{pipeline.GROUP_VOLUMES} a pair); the graph holds "
+              f"{held / 2**20:.1f} MiB ({held / g / volume:.1f} volumes a "
+              f"pair), within the card's estimate {held_bound / 2**20:.1f} "
+              "MiB (pipeline.pair_bytes)")
+        print(f"[batched {tag}] launches at capture: {entry.launches} "
+              f"({g} x one match)")
+        print(f"[batched {tag}] graph: median {graph_ms[0] / BATCH:.3f} ms a "
+              f"pair (min {graph_ms[1] / BATCH:.3f}, max "
+              f"{graph_ms[2] / BATCH:.3f}) of {MATCH_RUNS} calls of "
+              f"{BATCH} pairs; loop of match_device: median "
+              f"{loop_ms[0] / BATCH:.3f} ms a pair (min "
+              f"{loop_ms[1] / BATCH:.3f}, max {loop_ms[2] / BATCH:.3f}); "
+              f"each output bitwise match_device, also with group "
+              f"{HALF_GROUP}")
+        print_call_profile(torch, f"batched {tag}", graph_ms[0], BATCH,
+                           lambda: pipeline.match_batched_device(
+                               lefts, rights, opts, **kwargs))
+        if tag == "main":  # the same group on one stream, once
+            def one_stream():
+                return pipeline._match_stacks(
+                    (lefts, rights), opts, dev, g, cross_backend, agg_impl,
+                    branches=False)
+            _, _, one_held = first_call_memory(torch, dev, one_stream)
+            one_ms = host_ms(torch, one_stream)
+            print(f"[batched {tag}] group of {g} captured on one stream: "
+                  f"median {one_ms[0] / BATCH:.3f} ms a pair (min "
+                  f"{one_ms[1] / BATCH:.3f}, max {one_ms[2] / BATCH:.3f}); "
+                  f"the graph holds {one_held / 2**20:.1f} MiB")
+            print_call_profile(torch, f"batched {tag} one stream", one_ms[0],
+                               BATCH, one_stream)
+    graphs.clear()
+
+
+def drive_hetero(torch, dev, left, right, opts, path_launches, card):
+    """Phase 8: a Wood2-size pair at D=128 and the Cone-size pair in one
+    match_hetero_device graph, each output bitwise match_device on its
+    pair, the capture's launches twice one [main] match's."""
+    from adcensus_torch.config import ADCensusOptions
+    from adcensus_torch.stages import pipeline
+    from adcensus_torch.synthetic import two_layer_pair
+    from adcensus_torch.utils import graphs
+
+    h2, w2, d_bg, d_fg, seed, d2 = WOOD2
+    wl, wr, _ = two_layer_pair(h2, w2, d_bg, d_fg, seed=seed)
+    pairs = ((torch.as_tensor(wl, device=dev),
+              torch.as_tensor(wr, device=dev)), (left, right))
+    opts_seq = (ADCensusOptions(max_disparity=d2), opts)
+    outs, _, held = first_call_memory(
+        torch, dev, lambda: pipeline.match_hetero_device(pairs, opts_seq,
+                                                         device=dev))
+    held_bound = sum(pipeline.pair_bytes(l.shape[0], l.shape[1], o, dev)
+                     for (l, _), o in zip(pairs, opts_seq))
+    if held > held_bound:
+        raise AssertionError(f"[hetero] the graph holds {held / 2**20:.1f} "
+                             f"MiB, above {held_bound / 2**20:.1f} MiB")
+    (entry,) = graphs.cached()
+    want = {k: 2 * n for k, n in path_launches["main"].items()}
+    if entry.launches != want:
+        raise AssertionError(f"[hetero] the capture launched "
+                             f"{entry.launches}, expected {want}")
+    for (l, r), o, out in zip(pairs, opts_seq, outs):
+        assert_bitwise(torch, f"[hetero] {tuple(l.shape[:2])}", out,
+                       pipeline.match_device(l, r, o, device=dev))
+    graph_ms = host_ms(torch, lambda: pipeline.match_hetero_device(
+        pairs, opts_seq, device=dev))
+    loop_ms = host_ms(torch, lambda: [
+        pipeline.match_device(l, r, o, device=dev)
+        for (l, r), o in zip(pairs, opts_seq)])
+    vols = [o.disp_range * l.shape[0] * l.shape[1] * 4
+            for (l, _), o in zip(pairs, opts_seq)]
+    print(f"[hetero] {h2}x{w2} d=[0,{d2}) with {H}x{W} d=[0,{MAX_D}) in one "
+          f"graph: median {graph_ms[0]:.3f} ms a call (min "
+          f"{graph_ms[1]:.3f}, max {graph_ms[2]:.3f}); two match_device "
+          f"calls: median {loop_ms[0]:.3f} ms (min {loop_ms[1]:.3f}, max "
+          f"{loop_ms[2]:.3f}); launches at capture {entry.launches}; the "
+          f"graph holds {held / 2**20:.1f} MiB ({held / sum(vols):.1f} "
+          f"volumes of the two pairs), within the card's estimate "
+          f"{held_bound / 2**20:.1f}; each output bitwise match_device; card "
+          f"{card}")
+    print_call_profile(torch, "hetero", graph_ms[0], len(pairs),
+                       lambda: pipeline.match_hetero_device(
+                           pairs, opts_seq, device=dev))
+    graphs.clear()
+
+
+def where_time_goes(torch, left, right, opts, dev, expect, tag, ms):
+    """Print path ``tag``'s stage breakdown and device profile; ``ms`` is
+    its median match time."""
+    from adcensus_torch.stages import pipeline
+
+    stage_ms = stage_breakdown(torch, left, right, opts, expect, tag)
+    print(f"[stages {tag}] "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
+    cross_backend, agg_impl, _ = PATHS[tag]
+    prof = device_profile(torch, lambda: pipeline.match_device(
+        left, right, opts, device=dev, cross_backend=cross_backend,
+        agg_impl=agg_impl))
+    if prof is None:
+        print(f"[profile {tag}] not measured: the profiler recorded no "
+              "device activity")
+        return
+    busy_ms, top, hand, _ = prof
     print(f"[profile {tag}] device busy {busy_ms:.3f} ms of the {ms:.3f} ms "
           f"median match ({100.0 * (1.0 - busy_ms / ms):.1f} % idle); "
           "by kernel: "
@@ -767,26 +990,24 @@ def where_time_goes(torch, left, right, opts, dev, expect, tag, ms):
           + "; ".join(f"{n} {t:.4f} ms x{c}" for n, (t, c) in hand.items()))
 
 
-def device_profile(torch, left, right, opts, dev, tag="main",
-                   top_n: int = 12):
-    """Device time of one match on path ``tag`` from torch.profiler: the
-    union of its kernels' intervals (ms), the ``top_n`` kernels by total
-    device time as (name, ms, calls), and {kernel: (ms, calls)} summed for
-    each hand-written kernel of KERNELS, in or out of the top; None when
-    the profiler sees no device."""
+def device_profile(torch, fn, top_n: int = 12):
+    """Device time of one ``fn()`` (after a warm-up call) from
+    torch.profiler: the union of its kernels' intervals (ms), the
+    ``top_n`` kernels by total device time as (name, ms, calls),
+    {kernel: (ms, calls)} summed for each hand-written kernel of KERNELS,
+    in or out of the top, and the profiled call's host-clock ms; None
+    when the profiler sees no device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from adcensus_torch.stages import pipeline
-
-    cross_backend, agg_impl, _ = PATHS[tag]
-    kwargs = dict(device=dev, cross_backend=cross_backend, agg_impl=agg_impl)
-    pipeline.match_device(left, right, opts, **kwargs)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pipeline.match_device(left, right, opts, **kwargs)
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
         for e in prof.events() if e.device_type == DeviceType.CUDA
@@ -805,7 +1026,8 @@ def device_profile(torch, left, right, opts, dev, tag="main",
     for kernel, (*_, symbol) in KERNELS.items():
         runs = [(t, c) for n, (t, c) in per_name.items() if symbol in n]
         hand[kernel] = (sum(t for t, _ in runs), sum(c for _, c in runs))
-    return busy_us / 1e3, [(n[:60], t, c) for n, (t, c) in top], hand
+    return (busy_us / 1e3, [(n[:60], t, c) for n, (t, c) in top], hand,
+            call_ms)
 
 
 def stage_breakdown(torch, left, right, opts, expect, tag="main"):

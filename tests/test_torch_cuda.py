@@ -643,3 +643,141 @@ def test_match_device_matmul_equals_plain_pipeline(dev, agg_impl):
         plain = pipeline.match_device(left, right, opts, **kwargs)
         assert not any(_build.launches.values())
     _assert_bitwise(disp, plain)
+
+
+# The multi-pair pipelines: each group a CUDA graph replay
+
+GRAPH_PATHS = {"roll": ("roll", None), "matmul": ("matmul", None),
+               "banded": ("matmul", "banded")}
+
+
+def _stacks(dev, n, h=60, w=200):
+    """``n`` distinct synthetic pairs as (n, h, w, 3) uint8 stacks on the
+    card."""
+    pairs = [two_layer_pair(h, w, 4, 9, seed=s)[:2] for s in range(n)]
+    return tuple(torch.as_tensor(np.stack(side), device=dev)
+                 for side in zip(*pairs))
+
+
+@pytest.mark.parametrize("group", [4, 2])
+@pytest.mark.parametrize("path", sorted(GRAPH_PATHS))
+def test_batched_graph_equals_match_device(dev, path, group):
+    """Each output of a graph replay is bitwise ``match_device`` on its
+    pair, at g = B (one replay) and g < B (two); the capture counts g
+    times one match's launches, and the graph holds no more memory than
+    ``pair_bytes`` says."""
+    from adcensus_torch.utils import graphs
+
+    cross_backend, agg_impl = GRAPH_PATHS[path]
+    kwargs = dict(device=dev, cross_backend=cross_backend, agg_impl=agg_impl)
+    lefts, rights = _stacks(dev, 4)
+    opts = ADCensusOptions(max_disparity=16)
+    graphs.clear()
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved(dev)
+    out = pipeline.match_batched_device(lefts, rights, opts, group=group,
+                                        **kwargs)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_reserved(dev) - reserved
+    assert held <= group * pipeline.pair_bytes(60, 200, opts, dev,
+                                               cross_backend), held
+    _build.reset_launches()
+    singles = [pipeline.match_device(lefts[i], rights[i], opts, **kwargs)
+               for i in range(4)]
+    per_match = {k: v // 4 for k, v in _build.launches.items()}
+    (entry,) = graphs.cached()
+    assert entry.launches == {k: group * v for k, v in per_match.items()}
+    for i in range(4):
+        _assert_bitwise(out[i], singles[i])
+
+
+def test_hetero_graph_equals_per_pair(dev):
+    """Pairs of two shapes and disparity ranges in one graph, bitwise
+    equal to ``match_device`` on each."""
+    (l1,), (r1,) = _stacks(dev, 1)
+    l2, r2, _ = two_layer_pair(48, 150, 2, 5, seed=7)
+    pairs = ((l1, r1), (l2, r2))
+    opts_seq = (ADCensusOptions(max_disparity=16),
+                ADCensusOptions(max_disparity=8, cross_L1=12))
+    outs = pipeline.match_hetero_device(pairs, opts_seq, device=dev)
+    assert [tuple(o.shape) for o in outs] == [(60, 200), (48, 150)]
+    for (left, right), opts, out in zip(pairs, opts_seq, outs):
+        _assert_bitwise(out, pipeline.match_device(left, right, opts,
+                                                   device=dev))
+
+
+def test_second_call_captures_no_graph(dev):
+    """A call whose key is cached replays that graph: no capture, no
+    launch counted, and the same result for the same inputs."""
+    from adcensus_torch.utils import graphs
+
+    lefts, rights = _stacks(dev, 2)
+    opts = ADCensusOptions(max_disparity=16)
+    first = pipeline.match_batched_device(lefts, rights, opts, device=dev)
+    n = graphs.captures
+    _build.reset_launches()
+    again = pipeline.match_batched_device(lefts, rights, opts, device=dev)
+    assert graphs.captures == n
+    assert not any(_build.launches.values())
+    _assert_bitwise(again, first)
+
+
+def test_batched_replay_syncs_no_host(dev):
+    """With its inputs on the card, a call of a cached group makes no
+    host transfer: it runs under sync debug mode "error"."""
+    lefts, rights = _stacks(dev, 2)
+    opts = ADCensusOptions(max_disparity=16)
+    first = pipeline.match_batched_device(lefts, rights, opts, device=dev,
+                                          group=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = pipeline.match_batched_device(lefts, rights, opts, device=dev,
+                                            group=1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_bitwise(out, first)
+
+
+def test_capture_on_a_side_stream(dev):
+    """A call made on a stream other than the default captures and
+    replays there and gives ``match_device``'s result."""
+    from adcensus_torch.utils import graphs
+
+    lefts, rights = _stacks(dev, 2)
+    opts = ADCensusOptions(max_disparity=16)
+    graphs.clear()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        out = pipeline.match_batched_device(lefts, rights, opts, device=dev)
+        assert torch.cuda.current_stream(dev) == side
+    torch.cuda.current_stream(dev).wait_stream(side)
+    for i in range(2):
+        _assert_bitwise(out[i], pipeline.match_device(lefts[i], rights[i],
+                                                      opts, device=dev))
+
+
+def test_failed_capture_raises_with_its_stage(dev, monkeypatch):
+    """A stage that syncs the host breaks the capture: the call raises,
+    naming the stage, retries nothing, and leaves the caller's stream
+    current."""
+    from adcensus_torch.utils import graphs
+
+    median = refine.median_filter_3x3
+
+    def syncing_median(disp):
+        disp.sum().item()
+        return median(disp)
+
+    lefts, rights = _stacks(dev, 1)
+    graphs.clear()
+    monkeypatch.setattr(refine, "median_filter_3x3", syncing_median)
+    stream = torch.cuda.current_stream(dev)
+    with pytest.raises(RuntimeError,
+                       match="capture failed in stage refine.multistep_refine"):
+        pipeline.match_batched_device(lefts, rights,
+                                      ADCensusOptions(max_disparity=16),
+                                      device=dev)
+    assert torch.cuda.current_stream(dev) == stream
+    assert not graphs.cached()
