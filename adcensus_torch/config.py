@@ -46,8 +46,8 @@ class ADCensusOptions:
     do_filling: bool = True
     do_discontinuity_adjustment: bool = False
 
-    # Engine extension: the reference's in-place raster-order median.
-    # Not ported yet; the port raises when it is set.
+    # Engine extension: the reference's in-place raster-order median
+    # (kernel M1) in place of the out-of-place one.
     exact_median: bool = False
 
     @property

@@ -10,10 +10,12 @@ Port of ``adcensus_tpu/stages/refine.py`` (multistep_refiner.cpp:60-87):
   ``cross_backend="matmul"``).
 * Proper interpolation marches the 16 rays (kernel B4, ``ops/interp.py``);
   mismatch fills are written before the occlusion search runs.
-* The final 3x3 median is out of place.
-
-Not ported yet: ``depth_discontinuity_adjustment`` and the in-place median
-``median_filter_3x3_inplace``; their options raise NotImplementedError.
+* Depth-discontinuity adjustment (``do_discontinuity_adjustment``) is
+  exact, including the reference's in-place x-propagation (kernel M2,
+  ``ops/dda.py``, on the Sobel mask of ``edge_detect``).
+* The final 3x3 median is out of place, or with ``exact_median`` the
+  reference's in-place raster-order median (kernel M1,
+  ``ops/median.py``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,9 @@ from adcensus_torch.config import (
 )
 from adcensus_torch.ops.basic import f32, lround, shift2d
 from adcensus_torch.ops.cross_matmul import vote_band_masks
+from adcensus_torch.ops.dda import dda
 from adcensus_torch.ops.interp import ray_interp
+from adcensus_torch.ops.median import median_inplace
 from adcensus_torch.ops.region_vote import region_vote_stats
 
 
@@ -249,6 +253,47 @@ def proper_interpolation(
     return torch.where(occl_target, fill_o, disp)
 
 
+def edge_detect(disp: torch.Tensor, threshold: float = 5.0) -> torch.Tensor:
+    """Sobel edge mask (multistep_refiner.cpp:354-371), in the JAX
+    package's order of float32 operations; border rows and columns are
+    False."""
+    h, w = disp.shape
+
+    def s(dy, dx):
+        return shift2d(disp, -dy, -dx, 0.0)
+
+    gx = (
+        -s(-1, -1) + s(-1, 1) - 2 * s(0, -1) + 2 * s(0, 1) - s(1, -1) + s(1, 1)
+    )
+    gy = (
+        -s(-1, -1) - 2 * s(-1, 0) - s(-1, 1)
+        + s(1, -1) + 2 * s(1, 0) + s(1, 1)
+    )
+    mask = (gx.abs() + gy.abs()) > threshold
+    interior = torch.zeros((h, w), dtype=torch.bool, device=disp.device)
+    interior[1 : h - 1, 1 : w - 1] = True
+    return mask & interior
+
+
+def depth_discontinuity_adjustment(
+    disp: torch.Tensor,
+    cost: torch.Tensor,
+    opts: ADCensusOptions,
+) -> torch.Tensor:
+    """Edge-pixel disparity adjustment (multistep_refiner.cpp:307-352),
+    exact: kernel M2 (``ops/dda.py``) on the Sobel mask of ``disp``. The
+    (D, H, W) ``cost`` is indexed by lround(d) without subtracting
+    ``opts.min_disparity``, as the reference does."""
+    return dda(disp.contiguous(), cost.contiguous(), edge_detect(disp, 5.0))
+
+
+def median_filter_3x3_inplace(disp: torch.Tensor) -> torch.Tensor:
+    """The reference's exact in-place 3x3 median (adcensus_util.cpp:55-81
+    called with in == out at multistep_refiner.cpp:86): kernel M1
+    (``ops/median.py``). The input tensor is left as it is."""
+    return median_inplace(disp.contiguous())
+
+
 def median_filter_3x3(disp: torch.Tensor) -> torch.Tensor:
     """Out-of-place 3x3 median with border-clipped windows
     (adcensus_util.cpp:55-81). Out-of-image slots are +inf, which sorts
@@ -289,12 +334,6 @@ def multistep_refine(
 ) -> Dict[str, torch.Tensor]:
     """Full refinement chain (multistep_refiner.cpp:60-87);
     ``cross_backend`` picks the voting histograms' backend."""
-    if opts.do_discontinuity_adjustment:
-        raise NotImplementedError(
-            "depth discontinuity adjustment is not ported yet"
-        )
-    if opts.exact_median:
-        raise NotImplementedError("the in-place median is not ported yet")
     out: Dict[str, torch.Tensor] = {}
     disp = disp_left
     occl = torch.zeros_like(disp, dtype=torch.bool)
@@ -308,5 +347,11 @@ def multistep_refine(
         out["after_voting"] = disp
         disp = proper_interpolation(disp, left, occl, mism, opts)
         out["after_interpolation"] = disp
-    out["final"] = median_filter_3x3(disp)
+    if opts.do_discontinuity_adjustment:
+        disp = depth_discontinuity_adjustment(disp, cost, opts)
+        out["after_discontinuity"] = disp
+    if opts.exact_median:
+        out["final"] = median_filter_3x3_inplace(disp)
+    else:
+        out["final"] = median_filter_3x3(disp)
     return out

@@ -1,2 +1,2 @@
 """Run-time support of the entry points: the CUDA graphs of the multi-pair
-pipelines."""
+pipelines, and per-stage timing."""

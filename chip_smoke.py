@@ -7,7 +7,7 @@ CUDA card, ``nvidia-smi`` and ``nvcc`` (the kernels are built from
 imports nothing of JAX. Phases, each raising on failure:
 
 1. device: the card's name and power limit;
-2. build: the five CUDA kernels, timed;
+2. build: the seven CUDA kernels, timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the path that runs it and on that path's own inputs,
    bitwise, timed with CUDA events over runs of back-to-back calls
@@ -22,7 +22,10 @@ imports nothing of JAX. Phases, each raising on failure:
    with its mean and largest count of selected slots a column; B1, B3
    and B5 also at Cone size with arms that reach the cap, beside their
    own bounds; one dense band-matrix aggregation iteration beside B1, not
-   bitwise;
+   bitwise; M2 (discontinuity adjustment) on the main path's interpolated
+   map and cost_scan, and M1 (the in-place median) on what M2 gives, as
+   the [flags] path runs them, with M1's time per wavefront, and M1 also
+   at the Wood2 size and on 1100x64 (more rows than a block has threads);
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
    backend), with the launch counts of one match, the match time, bitwise
@@ -34,7 +37,9 @@ imports nothing of JAX. Phases, each raising on failure:
 6. backends: the same match with ``cross_backend="matmul"``, dense
    (``[matmul]``) and with kernel B5 (``[banded]``), each held as in
    phase 4, with its stages and profile as in phase 5, and compared with
-   the main path's disparity;
+   the main path's disparity; and ``[flags]``: the roll backend with
+   ``exact_median`` and ``do_discontinuity_adjustment`` on (one launch of
+   M1 and of M2 a match), held and profiled the same way;
 7. batched: ``match_batched_device`` on 8 distinct seeded Cone-size pairs
    (seeds 0 to 7) on the roll and banded paths, each group a CUDA graph
    replay: the group the budget picks, the first call's peak allocated
@@ -43,10 +48,17 @@ imports nothing of JAX. Phases, each raising on failure:
    bitwise equal to ``match_device`` on its pair, host-clock ms a pair
    against a loop of ``match_device``, the device's busy time in a
    profiled call, the same group captured on one stream (roll), and a
-   call with group 4 (two replays);
+   call with group 4 (two replays); and the same on the [flags] path;
 8. hetero: ``match_hetero_device`` on a Wood2-size pair (555x653, D=128)
    and the Cone-size pair in one graph, held as in phase 7, and the
-   call's ms against two ``match_device`` calls.
+   call's ms against two ``match_device`` calls;
+9. cli: the Cone-size pair written as PNGs under ``build/cli/`` with the
+   port's own I/O, ``python3 -m adcensus_torch.cli ... --parity`` run as
+   a subprocess (exit 0, its metrics, the two PNGs' shapes, the point
+   cloud's lines against the parity map's valid pixels), the same with
+   ``--timing`` (its stage lines printed), ``cli.run_pair`` in parity
+   mode bitwise equal to ``match(..., gray_mode="host64")`` with the
+   in-place median, and which image loader ran.
 
 The last two lines of its output are a JSON object of per-kernel numbers
 and ``{"ok": true, "device": {...}}``.
@@ -59,6 +71,7 @@ import subprocess
 import sys
 import time
 from contextlib import ExitStack
+from pathlib import Path
 from unittest import mock
 
 H, W, MAX_D = 375, 450, 64
@@ -74,6 +87,12 @@ BAD2_LIMIT_PCT = 10.0
 BATCH = 8                          # [batched]: pairs of seeds 0 .. BATCH-1
 HALF_GROUP = 4                     # [batched]: the group of two replays
 WOOD2 = (555, 653, 32, 64, 8, 128)  # [hetero]: H, W, d_bg, d_fg, seed, D
+# [flags]: the two flag-gated refinement stages, on the roll backend
+FLAGS = dict(exact_median=True, do_discontinuity_adjustment=True)
+MEDIAN_EXTRA = ((555, 653), (1100, 64))  # M1 beside the JSON's case
+SORT_OPS = 2 * 25  # min and max of the fewest comparators that sort 9
+CLI_DIR = Path(__file__).resolve().parent / "build" / "cli"
+CLI_TIMEOUT_S = 300
 
 KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
              #          the CUDA function the profiler names)
@@ -92,20 +111,31 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
     "band_mm": ("adcensus_torch/csrc/band_mm.cu",
                 "adcensus_tpu/ops/band_mm_pallas.py:132", "banded",
                 "band_kernel"),
+    # M1 and M2 replace lax.scan functions, not Pallas kernels
+    "median_inplace": ("adcensus_torch/csrc/median_inplace.cu",
+                       "adcensus_tpu/stages/refine.py:665", "flags",
+                       "median_inplace_kernel"),
+    "dda": ("adcensus_torch/csrc/dda.cu",
+            "adcensus_tpu/stages/refine.py:525", "flags", "dda_kernel"),
 }
 
 # path -> (cross_backend, agg_impl, launches one match must show: a count,
-# or None for at least one)
+# or None for at least one); [flags] runs with FLAGS set
 PATHS = {
     "main": ("roll", None, {"cross_sum": None, "scanline": None,
                             "region_vote": 10, "ray_interp": 2,
-                            "band_mm": 0}),
+                            "band_mm": 0, "median_inplace": 0, "dda": 0}),
     "matmul": ("matmul", None, {"cross_sum": 0, "region_vote": 0,
                                 "band_mm": 0, "scanline": 4,
-                                "ray_interp": 2}),
+                                "ray_interp": 2, "median_inplace": 0,
+                                "dda": 0}),
     "banded": ("matmul", "banded", {"cross_sum": 0, "region_vote": 0,
                                     "band_mm": 8, "scanline": 4,
-                                    "ray_interp": 2}),
+                                    "ray_interp": 2, "median_inplace": 0,
+                                    "dda": 0}),
+    "flags": ("roll", None, {"cross_sum": None, "scanline": None,
+                             "region_vote": 10, "ray_interp": 2,
+                             "band_mm": 0, "median_inplace": 1, "dda": 1}),
 }
 
 
@@ -174,7 +204,8 @@ def plain_versions():
     """Context that routes every kernel wrapper to its plain version, so
     the whole pipeline can run on the card without the kernels."""
     stack = ExitStack()
-    for mod in ("cross_sum", "scanline", "region_vote", "interp", "band_mm"):
+    for mod in ("cross_sum", "scanline", "region_vote", "interp", "band_mm",
+                "median", "dda"):
         stack.enter_context(mock.patch(
             f"adcensus_torch.ops.{mod}.kernels_for", lambda t: False
         ))
@@ -262,6 +293,7 @@ def kernel_cases(torch, inter, left, opts):
             lambda a=args: scanline.scanline_pass(*a),
             lambda a=args: scanline.scanline_pass_plain(*a), None,
             dhw * 9 + len(flags) * 4, dhw * 9,
+            (w if axis == "x" else h, "scan step"),
         ))
 
     cases["region_vote"] = [
@@ -279,6 +311,78 @@ def kernel_cases(torch, inter, left, opts):
 
     cases["band_mm"] = band_mm_cases(torch, inter["cost_init"], arms,
                                      max_arm, "")
+    cases["dda"], cases["median_inplace"] = flag_cases(torch, inter)
+    return cases
+
+
+def flag_cases(torch, inter):
+    """M2's and M1's cases as the [flags] path runs them: M2 on the main
+    path's interpolated map and cost_scan (the stages before it do not
+    depend on the flags), M1 on what M2 gives."""
+    from adcensus_torch.ops import dda
+    from adcensus_torch.stages import refine
+
+    disp, cost = inter["after_interpolation"], inter["cost_scan"]
+    edge = refine.edge_detect(disp)
+    adjusted = dda.dda(disp, cost, edge)
+    return ([dda_case(torch, "interpolated map", disp, cost, edge,
+                      adjusted)],
+            [median_case(torch, "adjusted map", adjusted)])
+
+
+def dda_case(torch, label, disp, cost, edge, adjusted):
+    """M2's case, labelled with its edge pixels and those it changed. Its
+    bound: the map and the edge mask read and the map written (9 B a
+    pixel), and at each pixel it adjusts (an interior edge pixel whose own
+    index is in range) the cost cells it compares: its own, the left
+    neighbour's final value's and the right neighbour's where their
+    indices are in range (4 B each); two comparisons a candidate."""
+    from adcensus_torch.ops import dda
+
+    d_range, h, w = cost.shape
+    _, own_ok = dda._rounded_idx(disp, d_range)
+    _, right_ok = dda._rounded_idx(disp[:, 1:], d_range)
+    _, left_ok = dda._rounded_idx(adjusted[:, :-1], d_range)
+    act = (edge & own_ok)[:, 1:-1]
+    cells = int(act.sum()) + int((act & left_ok[:, :-1]).sum()) + int(
+        (act & right_ok[:, 1:]).sum())
+    args = (disp, cost, edge)
+    return (
+        f"{label} ({int(edge.sum())} edge pixels, {int(act.sum())} "
+        f"adjustable, {int((adjusted != disp).sum())} changed)",
+        lambda: dda.dda(*args), lambda: dda.dda_plain(*args), None,
+        h * w * 9 + cells * 4, 2 * cells,
+    )
+
+
+def median_case(torch, label, disp):
+    """M1's case, with its time per wavefront (W + 2H - 2 of them). Its
+    bound: the map read and written (8 B a pixel) and SORT_OPS a pixel."""
+    from adcensus_torch.ops import median
+
+    h, w = disp.shape
+    waves = w + 2 * h - 2
+    return (
+        f"{label} {h}x{w} ({waves} wavefronts)",
+        lambda: median.median_inplace(disp),
+        lambda: median.median_inplace_plain(disp), None,
+        h * w * 8, h * w * SORT_OPS, (waves, "wavefront"),
+    )
+
+
+def median_extra_cases(torch, dev):
+    """M1 at MEDIAN_EXTRA's sizes on seeded maps of disparities in
+    [0.5, 128) with 15 % +inf (no zeros: the order of -0.0 and +0.0 is
+    defined by neither version)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for h, w in MEDIAN_EXTRA:
+        src = rng.uniform(0.5, 128.0, (h, w)).astype(np.float32)
+        src[rng.random((h, w)) < 0.15] = np.inf
+        cases.append(median_case(torch, "random map",
+                                 torch.as_tensor(src, device=dev)))
     return cases
 
 
@@ -524,7 +628,7 @@ def measure_case(torch, name, case):
     library call, if any, within 1e-4), time all three, print a line;
     return (max |diff|, kernel ms, plain ms, library ms or None, bound ms,
     bound kind)."""
-    label, kern, plain, library, n_bytes, n_ops = case
+    label, kern, plain, library, n_bytes, n_ops, *steps = case
     out_k, out_p = kern(), plain()
     outs = (out_k, out_p) if isinstance(out_k, tuple) else (
         (out_k,), (out_p,))
@@ -541,9 +645,9 @@ def measure_case(torch, name, case):
             )
         l_ms = time_ms(torch, library)
         lib_note = f", library {l_ms:.4f} ms (max |diff| {lib_err:.3g})"
-    if name == "scanline":  # step latency against bytes
-        steps = W if label.startswith("x") else H
-        lib_note += f", {k_ms * 1e6 / steps:.1f} ns per scan step"
+    if steps:  # a recurrence's latency a step, against its bound
+        (n_steps, unit), = steps
+        lib_note += f", {k_ms * 1e6 / n_steps:.1f} ns per {unit}"
     print(f"[kernel] {name} {label}: {k_ms:.4f} ms, plain {p_ms:.4f} ms"
           f"{lib_note}, bound {b_ms:.4f} ms ({b_kind}, "
           f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} G operations); "
@@ -710,6 +814,8 @@ def main() -> int:
     for name, cases in long_arm_cases(torch, dev, opts, inter).items():
         for case in cases:
             measure_case(torch, name, case)
+    for case in median_extra_cases(torch, dev):
+        measure_case(torch, "median_inplace", case)
     for hf, ms, err in dense_matmul_note(torch, inter, opts):
         print(f"[note] dense cross_pass_matmul, "
               f"{'horizontal' if hf else 'vertical'}-first: {ms:.4f} ms "
@@ -739,11 +845,23 @@ def main() -> int:
               f"bitwise, {100.0 * float(near.float().mean()):.2f} % within "
               "1e-3 (validity included)")
 
+    # 6. [flags]: the in-place median (M1) and discontinuity adjustment (M2)
+    opts_flags = ADCensusOptions(max_disparity=MAX_D, **FLAGS)
+    disp_f, path_launches["flags"], ms_f = drive_path(
+        torch, "flags", left, right, opts_flags, dev, gt)
+    where_time_goes(torch, left, right, opts_flags, dev, disp_f, "flags",
+                    ms_f)
+    print(f"[flags] changes {int((disp_f != disp).sum())} of {H * W} pixels "
+          "of [main]'s disparity")
+
     # 7. the batched pipeline, each group a CUDA graph replay
-    drive_batched(torch, dev, opts, path_launches, card)
+    drive_batched(torch, dev, opts, opts_flags, path_launches, card)
 
     # 8. the mixed-shape pipeline: Wood2-size and Cone-size in one graph
     drive_hetero(torch, dev, left, right, opts, path_launches, card)
+
+    # 9. the CLI in parity mode, as a user runs it
+    drive_cli(torch, dev, left_np, right_np, gt, card)
 
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
@@ -822,11 +940,12 @@ def print_call_profile(torch, tag, ms, pairs, fn):
           + "; ".join(f"{n} {t:.4f} ms x{c}" for n, (t, c) in hand.items()))
 
 
-def drive_batched(torch, dev, opts, path_launches, card):
-    """Phase 7 on the [main] and [banded] paths: 8 Cone-size pairs through
-    match_batched_device, each group one CUDA graph replay. Raises unless
-    every output is bitwise match_device on its pair and the capture
-    launched g times what one match of the path launched."""
+def drive_batched(torch, dev, opts, opts_flags, path_launches, card):
+    """Phase 7 on the [main], [banded] and [flags] paths (the last with
+    ``opts_flags``): 8 Cone-size pairs through match_batched_device, each
+    group one CUDA graph replay. Raises unless every output is bitwise
+    match_device on its pair and the capture launched g times what one
+    match of the path launched."""
     import numpy as np
 
     from adcensus_torch.stages import pipeline
@@ -838,7 +957,8 @@ def drive_batched(torch, dev, opts, path_launches, card):
     lefts, rights = (torch.as_tensor(np.stack(side), device=dev)
                      for side in zip(*pairs))
     volume = opts.disp_range * H * W * 4
-    for tag in ("main", "banded"):
+    for tag, opts in (("main", opts), ("banded", opts),
+                      ("flags", opts_flags)):
         cross_backend, agg_impl, _ = PATHS[tag]
         kwargs = dict(device=dev, cross_backend=cross_backend,
                       agg_impl=agg_impl)
@@ -965,6 +1085,89 @@ def drive_hetero(torch, dev, left, right, opts, path_launches, card):
     graphs.clear()
 
 
+def run_cli(args):
+    """``python3 -m adcensus_torch.cli`` with ``args`` from the checkout's
+    root; raises unless it exits 0. Returns its standard output."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "adcensus_torch.cli", *args],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=CLI_TIMEOUT_S,
+    )
+    if proc.returncode != 0:
+        raise AssertionError(f"[cli] exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def drive_cli(torch, dev, left_np, right_np, gt, card):
+    """Phase 9: the Cone-size pair as PNGs through the CLI's parity mode
+    in a subprocess, the same with --timing, and cli.run_pair in parity
+    mode in process, bitwise equal to match(..., gray_mode="host64") with
+    the in-place median."""
+    import dataclasses
+
+    import numpy as np
+
+    from adcensus_torch import cli
+    from adcensus_torch.config import ADCensusOptions
+    from adcensus_torch.io import image, native_png
+    from adcensus_torch.stages import pipeline
+    from adcensus_torch.synthetic import bad_pct
+
+    CLI_DIR.mkdir(parents=True, exist_ok=True)
+    lp, rp = str(CLI_DIR / "L.png"), str(CLI_DIR / "R.png")
+    image.save_png(left_np, lp)
+    image.save_png(right_np, rp)
+    loader = "native codec" if native_png.decode(lp) is not None else "PIL"
+    if not np.array_equal(image.load_image_rgb(lp), left_np):
+        raise AssertionError("[cli] the left PNG does not read back")
+
+    opts = ADCensusOptions(max_disparity=MAX_D, exact_median=True)
+    disp, _, _ = cli.run_pair(left_np, right_np, opts, verbose=False,
+                              gray_mode="host64", device=dev)
+    want = pipeline.match(left_np, right_np, opts, gray_mode="host64",
+                          device=dev)["disparity"]
+    if not np.array_equal(disp.view(np.uint32), want.view(np.uint32)):
+        raise AssertionError("[cli] run_pair in parity mode differs from "
+                             "match(gray_mode='host64', exact_median=True)")
+    default = pipeline.match(left_np, right_np,
+                             dataclasses.replace(opts, exact_median=False),
+                             device=dev)["disparity"]
+
+    prefix, cloud = str(CLI_DIR / "cone"), str(CLI_DIR / "cone.txt")
+    t0 = time.perf_counter()
+    out = run_cli([lp, rp, "0", str(MAX_D), "--parity", "--out", prefix,
+                   "--cloud", cloud])
+    cli_s = time.perf_counter() - t0
+    if "density_pct" not in out:
+        raise AssertionError(f"[cli] no metrics in its output: {out}")
+    for suffix in ("-d.png", "-c.png"):
+        shape = image.load_image_rgb(prefix + suffix).shape
+        if shape != (H, W, 3):
+            raise AssertionError(f"[cli] {prefix + suffix} is {shape}")
+    with open(cloud) as f:
+        points = [line.split() for line in f]
+    if len(points) != int(np.isfinite(disp).sum()) or any(
+            len(p) != 6 for p in points):
+        raise AssertionError(f"[cli] the cloud has {len(points)} points, "
+                             f"the parity map {int(np.isfinite(disp).sum())}"
+                             " valid pixels")
+    stages = [line for line in run_cli([lp, rp, "0", str(MAX_D), "--parity",
+                                        "--timing", "--no-save"]).splitlines()
+              if "Mpix*disp/s" in line]
+    if len(stages) != 7:
+        raise AssertionError(f"[cli] --timing printed {stages}")
+    print(f"[cli] image loader: {loader}; {H}x{W} d=[0,{MAX_D}) --parity: "
+          f"exit 0 in {cli_s:.1f} s (process start, kernel load and one "
+          f"match), {len(points)} cloud points, PNGs {H}x{W}; run_pair "
+          "--parity equals match(gray_mode='host64', exact_median=True) "
+          f"bitwise; bad-2.0 {bad_pct(disp, gt, 2.0):.3f} % (device gray, "
+          f"out-of-place median: {bad_pct(default, gt, 2.0):.3f} %), "
+          f"{int((disp != default).sum())} pixels differ; card {card}")
+    for line in stages:
+        print(f"[cli --parity --timing] {line.strip()}")
+
+
 def where_time_goes(torch, left, right, opts, dev, expect, tag, ms):
     """Print path ``tag``'s stage breakdown and device profile; ``ms`` is
     its median match time."""
@@ -1068,7 +1271,13 @@ def stage_breakdown(torch, left, right, opts, expect, tag="main"):
         mark("voting")
         disp = refine.proper_interpolation(disp, left, occl, mism, opts)
         mark("interpolation")
-        disp = refine.median_filter_3x3(disp)
+        if opts.do_discontinuity_adjustment:
+            disp = refine.depth_discontinuity_adjustment(disp, vol, opts)
+        mark("discontinuity")
+        if opts.exact_median:
+            disp = refine.median_filter_3x3_inplace(disp)
+        else:
+            disp = refine.median_filter_3x3(disp)
         mark("median")
         torch.cuda.synchronize()
     if not torch.equal(disp.view(torch.int32), expect.view(torch.int32)):

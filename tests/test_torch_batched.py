@@ -90,6 +90,20 @@ def test_batched_equals_match_device(batch, group):
         _assert_bitwise(out[i], singles[i])
 
 
+def test_batched_with_flags_equals_match_device(batch):
+    """With the in-place median and discontinuity adjustment on, each
+    output equals that pair's match_device bit for bit."""
+    lefts, rights, singles = batch
+    opts = ADCensusOptions(**OPTS, exact_median=True,
+                           do_discontinuity_adjustment=True)
+    out = torch_pipeline.match_batched_device(lefts, rights, opts,
+                                              device="cpu")
+    for i in range(3):
+        _assert_bitwise(out[i], torch_pipeline.match_device(
+            lefts[i], rights[i], opts, device="cpu"))
+    assert not torch.equal(out[0], singles[0])
+
+
 def test_batched_takes_tensors(batch):
     lefts, rights, singles = batch
     out = torch_pipeline.match_batched_device(

@@ -13,7 +13,12 @@ of pixels, other launch geometries, and the voting stage under sync debug
 mode "error". B4's cover the CPU emulation's grid of targets, searches
 and map shapes, in-image NaN, other ray counts and launch geometries, the
 Cone-size pair's own phases, and the interpolation stage under sync debug
-mode "error".
+mode "error". M1's (the in-place median) and M2's (discontinuity
+adjustment) cover one-pixel-wide and -high maps, the Cone, Wood2 and
+1100x64 sizes (more rows than a block has threads), maps all +inf,
+disparities whose cost index falls outside [0, D), the Cone-size pair's
+own refinement maps, both stages under sync debug mode "error", the match
+with both flags and a batched graph with both flags.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports no
 JAX, so on the GPU host it runs without the JAX test configuration:
@@ -26,7 +31,7 @@ import torch
 
 from adcensus_torch.config import ADCensusOptions
 from adcensus_torch.ops import (
-    _build, band_mm, cross_sum, interp, region_vote, scanline,
+    _build, band_mm, cross_sum, dda, interp, median, region_vote, scanline,
 )
 from adcensus_torch.stages import aggregate, arms, pipeline, refine
 from adcensus_torch.stages import cost as cost_stage
@@ -515,13 +520,170 @@ def test_match_device_equals_plain_pipeline(dev):
     _build.reset_launches()
     disp = pipeline.match_device(left, right, opts, device=dev)
     launches = dict(_build.launches)
-    assert launches.pop("band_mm") == 0
+    for name in ("band_mm", "median_inplace", "dda"):
+        assert launches.pop(name) == 0, name
     assert all(launches.values()), launches
     with plain_versions():
         _build.reset_launches()
         plain = pipeline.match_device(left, right, opts, device=dev)
         assert not any(_build.launches.values())
     _assert_bitwise(disp, plain)
+
+
+# Kernels M1 (the in-place median) and M2 (discontinuity adjustment)
+
+FLAG_SHAPES = {"1x50": (1, 50), "50x1": (50, 1), "2x2": (2, 2),
+               "1x1": (1, 1), "9x11": (9, 11), "cone": (375, 450),
+               "wood2": (555, 653), "1100x64": (1100, 64)}
+
+
+def _holey_map(dev, h, w, seed, share=0.15):
+    """Disparities in [0.5, 60) with ``share`` +inf: no zeros, so no
+    -0.0 / +0.0 tie, whose order neither torch.sort nor the kernel's
+    network defines."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(0.5, 60.0, (h, w)).astype(np.float32)
+    src[rng.random((h, w)) < share] = np.inf
+    return torch.as_tensor(src, device=dev)
+
+
+@pytest.mark.parametrize("shape", sorted(FLAG_SHAPES))
+def test_median_inplace_bitwise(dev, shape):
+    """M1, one launch, against its plain version."""
+    h, w = FLAG_SHAPES[shape]
+    src = _holey_map(dev, h, w, seed=h + w)
+    _build.reset_launches()
+    out = median.median_inplace(src)
+    assert _build.launches["median_inplace"] == 1
+    _assert_bitwise(out, median.median_inplace_plain(src))
+
+
+@pytest.mark.parametrize("shape", ["2x2", "cone", "1100x64"])
+def test_median_inplace_all_invalid(dev, shape):
+    src = torch.full(FLAG_SHAPES[shape], float("inf"), device=dev)
+    out = median.median_inplace(src)
+    _assert_bitwise(out, median.median_inplace_plain(src))
+    assert bool(torch.isinf(out).all())
+
+
+def test_median_inplace_checks_its_input(dev):
+    src = _holey_map(dev, 8, 10, seed=0)
+    with pytest.raises(TypeError):
+        median.median_inplace(src.double())
+    with pytest.raises(ValueError):
+        median.median_inplace(src.t())
+
+
+def _dda_inputs(dev, h, w, min_disparity, seed, d_range=16):
+    """A map of disparities from min_disparity - 2 to min_disparity + D +
+    3 with halves and 10 % +inf, and a random (D, H, W) cost: the cost is
+    indexed by lround(d) without subtracting min_disparity, so indices
+    fall outside [0, D) on both sides."""
+    rng = np.random.default_rng(seed)
+    disp = (rng.integers(min_disparity - 2, min_disparity + d_range + 4,
+                         (h, w))
+            + rng.choice([0.0, 0.25, 0.5, -0.5], (h, w))).astype(np.float32)
+    disp[rng.random((h, w)) < 0.1] = np.inf
+    cost = rng.random((d_range, h, w)).astype(np.float32)
+    opts = ADCensusOptions(min_disparity=min_disparity,
+                           max_disparity=min_disparity + d_range)
+    return (torch.as_tensor(disp, device=dev),
+            torch.as_tensor(cost, device=dev), opts)
+
+
+@pytest.mark.parametrize("min_disparity", [-4, 3])
+@pytest.mark.parametrize("shape", sorted(FLAG_SHAPES))
+def test_dda_bitwise(dev, shape, min_disparity):
+    """M2, one launch, against its plain version on the Sobel mask."""
+    h, w = FLAG_SHAPES[shape]
+    disp, cost, opts = _dda_inputs(dev, h, w, min_disparity, seed=h * w)
+    _build.reset_launches()
+    out = refine.depth_discontinuity_adjustment(disp, cost, opts)
+    assert _build.launches["dda"] == 1
+    _assert_bitwise(out, dda.dda_plain(disp, cost, refine.edge_detect(disp)))
+    if h > 2 and w > 2:
+        assert not torch.equal(out, disp)
+
+
+def test_flag_stages_on_cone_maps(dev):
+    """M2 on the Cone-size pair's interpolated map and cost_scan, M1 on
+    what M2 gives, as the [flags] path runs them."""
+    left, right, _ = two_layer_pair(375, 450, 16, 32, seed=0)
+    opts = ADCensusOptions(max_disparity=64)
+    lt, rt = (torch.as_tensor(x, device=dev) for x in (left, right))
+    inter = pipeline.match_core(
+        lt, rt, cost_stage.compute_gray(lt), cost_stage.compute_gray(rt),
+        opts, return_intermediates=True,
+    )
+    disp, cost = inter["after_interpolation"], inter["cost_scan"]
+    adjusted = refine.depth_discontinuity_adjustment(disp, cost, opts)
+    _assert_bitwise(adjusted, dda.dda_plain(disp, cost,
+                                            refine.edge_detect(disp)))
+    assert not torch.equal(adjusted, disp)
+    _assert_bitwise(median.median_inplace(adjusted),
+                    median.median_inplace_plain(adjusted))
+
+
+def test_flag_stages_sync_no_host(dev):
+    """Discontinuity adjustment and the in-place median on the card make
+    no host transfer: both run under sync debug mode "error", one launch
+    each, equal to the plain versions."""
+    disp, cost, opts = _dda_inputs(dev, 60, 200, -2, seed=5)
+    refine.median_filter_3x3_inplace(
+        refine.depth_discontinuity_adjustment(disp, cost, opts))
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        adjusted = refine.depth_discontinuity_adjustment(disp, cost, opts)
+        out = refine.median_filter_3x3_inplace(adjusted)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.launches["dda"] == _build.launches["median_inplace"] == 1
+    with plain_versions():
+        _assert_bitwise(adjusted,
+                        refine.depth_discontinuity_adjustment(disp, cost,
+                                                              opts))
+        _assert_bitwise(out, refine.median_filter_3x3_inplace(adjusted))
+
+
+FLAGS = dict(exact_median=True, do_discontinuity_adjustment=True)
+
+
+def test_match_device_with_flags_equals_plain_pipeline(dev):
+    """The [flags] match: one launch of M1 and M2 besides B1-B4, the same
+    disparity as the plain pipeline on the card."""
+    left, right, _ = two_layer_pair(60, 200, 4, 9, seed=3)
+    opts = ADCensusOptions(min_disparity=-2, max_disparity=14, **FLAGS)
+    _build.reset_launches()
+    disp = pipeline.match_device(left, right, opts, device=dev)
+    launches = dict(_build.launches)
+    assert launches["median_inplace"] == launches["dda"] == 1
+    assert launches.pop("band_mm") == 0 and all(launches.values())
+    with plain_versions():
+        _build.reset_launches()
+        plain = pipeline.match_device(left, right, opts, device=dev)
+        assert not any(_build.launches.values())
+    _assert_bitwise(disp, plain)
+
+
+@pytest.mark.parametrize("group", [4, 2])
+def test_batched_graph_with_flags_equals_match_device(dev, group):
+    """A batched graph with both flags: each output bitwise match_device,
+    M1 and M2 captured once a pair."""
+    from adcensus_torch.utils import graphs
+
+    lefts, rights = _stacks(dev, 4)
+    opts = ADCensusOptions(max_disparity=16, **FLAGS)
+    graphs.clear()
+    out = pipeline.match_batched_device(lefts, rights, opts, group=group,
+                                        device=dev)
+    (entry,) = graphs.cached()
+    assert entry.launches["median_inplace"] == entry.launches["dda"] == group
+    for i in range(4):
+        _assert_bitwise(out[i], pipeline.match_device(lefts[i], rights[i],
+                                                      opts, device=dev))
+    graphs.clear()
 
 
 def _random_arms(rng, h, w, max_arm):

@@ -77,6 +77,60 @@ def test_chained_stages_bitwise_from_jax_cost(scene, case):
     )
 
 
+# The flag-gated refinement stages: the in-place median (kernel M1's plain
+# version) and discontinuity adjustment (kernel M2's), each and both
+FLAG_CASES = {
+    "exact_median": dict(exact_median=True),
+    "discontinuity": dict(do_discontinuity_adjustment=True),
+    "both": dict(exact_median=True, do_discontinuity_adjustment=True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FLAG_CASES))
+def test_flags_stages_bitwise_from_jax_cost(scene, case):
+    """From JAX's cost_init, every stage output of the port's chain with
+    the flags on, "after_discontinuity" included, is JAX's eager
+    match_core's bit for bit."""
+    left, right, _, default = scene
+    opts_kw = dict(OPTS, **FLAG_CASES[case])
+    inter = _jax_match(left, right, opts_kw)
+    opts = ADCensusOptions(**opts_kw)
+    lt, rt = torch.as_tensor(left), torch.as_tensor(right)
+    arms = torch.as_tensor(inter["arms"])
+    ours = {"cost_aggr": torch_agg.aggregate(
+        torch.as_tensor(inter["cost_init"]), arms, opts)}
+    ours["cost_scan"] = torch_scan.scanline_optimize(ours["cost_aggr"], lt,
+                                                     rt, opts)
+    ours["disp_left_raw"] = torch_wta.wta_left(ours["cost_scan"], opts)
+    ours["disp_right_raw"] = torch_wta.wta_right(ours["cost_scan"], opts)
+    refined = torch_refine.multistep_refine(
+        ours["disp_left_raw"], ours["disp_right_raw"], lt, ours["cost_scan"],
+        arms, opts,
+    )
+    ours["disparity"] = refined.pop("final")
+    ours.update(refined)
+    assert set(ours) == set(inter) - {"cost_init", "arms"}
+    for k, v in ours.items():
+        np.testing.assert_array_equal(v.numpy().view(np.uint32),
+                                      inter[k].view(np.uint32), err_msg=k)
+    assert not np.array_equal(inter["disparity"], default["disparity"])
+    if "do_discontinuity_adjustment" in FLAG_CASES[case]:
+        assert not np.array_equal(inter["after_discontinuity"],
+                                  inter["after_interpolation"])
+
+
+@pytest.mark.parametrize("case", sorted(FLAG_CASES))
+def test_match_with_flags_close_from_images(scene, case):
+    """The port's own match from images with the flags on against JAX's,
+    to the tolerance of test_match_core_close_from_images."""
+    left, right, gt, _ = scene
+    opts_kw = dict(OPTS, **FLAG_CASES[case])
+    ours = torch_pipeline.match(left, right, ADCensusOptions(**opts_kw),
+                                device="cpu")["disparity"]
+    _assert_close_match(ours, _jax_match(left, right, opts_kw)["disparity"],
+                        gt)
+
+
 def test_match_core_close_from_images(scene):
     """The port's own match from raw images. Its cost volume differs
     from XLA's by one-ulp exp differences, which can move a few

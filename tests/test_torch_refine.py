@@ -1,6 +1,8 @@
 """The port's refinement (adcensus_torch/stages/refine.py and the plain
-versions of kernels B3, ops/region_vote.py, and B4, ops/interp.py)
-against the JAX package, on the CPU, from JAX-produced inputs."""
+versions of kernels B3, ops/region_vote.py, B4, ops/interp.py, M1,
+ops/median.py, and M2, ops/dda.py) against the JAX package and the numpy
+oracle, on the CPU, from JAX-produced inputs; and line-by-line emulations
+of kernels M1 and M2 against their plain versions."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -9,11 +11,14 @@ import pytest
 import torch
 
 from adcensus_torch.config import ADCensusOptions
+from adcensus_torch.ops import dda as torch_dda
 from adcensus_torch.ops import interp as torch_interp
+from adcensus_torch.ops import median as torch_median
 from adcensus_torch.ops import region_vote as torch_vote
 from adcensus_torch.stages import refine as torch_refine
 from adcensus_torch.synthetic import two_layer_pair
 from adcensus_tpu.config import ADCensusOptions as JaxOptions
+from adcensus_tpu.oracle import numpy_ref
 from adcensus_tpu.ops import region_vote_pallas as jax_vote
 from adcensus_tpu.stages import cost as jax_cost
 from adcensus_tpu.stages import pipeline as jax_pipeline
@@ -293,10 +298,245 @@ def test_multistep_refine_exact(scene, do_lr_check, do_filling):
 @pytest.mark.parametrize("flag", ["exact_median",
                                   "do_discontinuity_adjustment"])
 def test_unported_options_raise(scene, flag):
+    """The two options that raised NotImplementedError before their
+    stages were ported now run: the chain's stage outputs equal JAX's bit
+    for bit, "after_discontinuity" included."""
     left, inter = scene
-    opts = dataclasses.replace(ADCensusOptions(**OPTS), **{flag: True})
-    with pytest.raises(NotImplementedError):
-        torch_refine.multistep_refine(
-            _t(inter["disp_left_raw"]), _t(inter["disp_right_raw"]),
-            _t(left), _t(inter["cost_scan"]), _t(inter["arms"]), opts,
-        )
+    opts = dict(OPTS, **{flag: True})
+    args = (inter["disp_left_raw"], inter["disp_right_raw"], left,
+            inter["cost_scan"], inter["arms"])
+    ref = jax_refine.multistep_refine(
+        *map(jnp.asarray, args), JaxOptions(**opts), use_pallas=False
+    )
+    ours = torch_refine.multistep_refine(*map(_t, args),
+                                         ADCensusOptions(**opts))
+    assert set(ours) == set(ref)
+    assert ("after_discontinuity" in ours) == (
+        flag == "do_discontinuity_adjustment")
+    for k in ref:
+        np.testing.assert_array_equal(_bits(ours[k].numpy()),
+                                      _bits(ref[k]), err_msg=k)
+
+
+# The in-place median (kernel M1's plain version) and the discontinuity
+# adjustment (kernel M2's)
+
+MEDIAN_SHAPES = [(9, 11), (24, 17), (33, 64), (40, 9), (1, 7), (7, 1),
+                 (2, 2)]
+
+
+def _holey_map(seed, h, w, lo=0.0, hi=60.0, share=0.15):
+    """Uniform float32 disparities in [lo, hi) with ``share`` +inf."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(lo, hi, (h, w)).astype(np.float32)
+    src[rng.random((h, w)) < share] = np.inf
+    return src
+
+
+@pytest.mark.parametrize("h,w", [(5, 7), (17, 33), (36, 52), (1, 4)])
+def test_shear_roundtrip(h, w):
+    """_shear is S[y, t] = a[y, t - 2y] (+inf outside), JAX's bit for bit,
+    and _unshear inverts it."""
+    a = np.random.default_rng(3).uniform(0, 9, (h, w)).astype(np.float32)
+    t_cols = w + 2 * h
+    s = torch_median._shear(_t(a), t_cols, np.inf).numpy()
+    for y in range(h):
+        np.testing.assert_array_equal(s[y, 2 * y : 2 * y + w], a[y])
+        assert np.isinf(s[y, : 2 * y]).all()
+        assert np.isinf(s[y, 2 * y + w :]).all()
+    np.testing.assert_array_equal(
+        s, np.asarray(jax_refine._shear(jnp.asarray(a), t_cols, np.inf)))
+    np.testing.assert_array_equal(
+        torch_median._unshear(_t(s), w, np.inf).numpy(), a)
+
+
+@pytest.mark.parametrize("h,w", MEDIAN_SHAPES)
+def test_median_inplace_exact(h, w):
+    """The plain in-place median on maps with 15 % +inf equals JAX's
+    median_filter_3x3_inplace and the oracle's raster loop bit for bit."""
+    src = _holey_map(7 + h * w, h, w)
+    ours = torch_refine.median_filter_3x3_inplace(_t(src)).numpy()
+    ref = np.asarray(jax_refine.median_filter_3x3_inplace(jnp.asarray(src)))
+    oracle = numpy_ref.median_filter_inplace(src.copy(), 3)
+    np.testing.assert_array_equal(_bits(ours), _bits(ref))
+    np.testing.assert_array_equal(_bits(ours), _bits(oracle))
+    assert np.isinf(src).any() and not np.array_equal(ours, src)
+
+
+def test_median_inplace_scene(scene):
+    """On the scene's interpolated map, and different from the
+    out-of-place median there (the raster order matters)."""
+    src = scene[1]["after_interpolation"]
+    ours = torch_refine.median_filter_3x3_inplace(_t(src)).numpy()
+    ref = np.asarray(jax_refine.median_filter_3x3_inplace(jnp.asarray(src)))
+    np.testing.assert_array_equal(_bits(ours), _bits(ref))
+    dense = torch_refine.median_filter_3x3(_t(src)).numpy()
+    assert not np.array_equal(ours, dense)
+
+
+def _median_kernel_emulation(src):
+    """csrc/median_inplace.cu, pixel by pixel: wavefront t = x + 2y in
+    order, the nine reads of each pixel (filtered from the output buffer,
+    original from the input), the odd-even transposition network of
+    min/max pairs, the rank from the border distances. The output starts
+    as NaN, so a read of a pixel not yet written shows."""
+    h, w = src.shape
+    out = np.full_like(src, np.nan)
+    inf = np.float32(np.inf)
+    for t in range(w + 2 * (h - 1)):
+        for y in range(h):
+            x = t - 2 * y
+            if not 0 <= x < w:
+                continue
+            up, down, left, right = y > 0, y < h - 1, x > 0, x < w - 1
+            v = [out[y, x - 1] if left else inf,
+                 out[y - 1, x + 1] if up and right else inf,
+                 out[y - 1, x] if up else inf,
+                 out[y - 1, x - 1] if up and left else inf,
+                 src[y, x],
+                 src[y, x + 1] if right else inf,
+                 src[y + 1, x - 1] if down and left else inf,
+                 src[y + 1, x] if down else inf,
+                 src[y + 1, x + 1] if down and right else inf]
+            assert not np.isnan(v).any(), (y, x)
+            for rnd in range(9):
+                for i in range(rnd % 2, 8, 2):
+                    v[i], v[i + 1] = min(v[i], v[i + 1]), max(v[i], v[i + 1])
+            out[y, x] = v[((1 + up + down) * (1 + left + right)) // 2]
+    return out
+
+
+@pytest.mark.parametrize("h,w", MEDIAN_SHAPES + [(3, 1), (1, 1)])
+def test_median_kernel_emulation_equals_plain(h, w):
+    src = _holey_map(11 + h + w, h, w, lo=0.5)
+    np.testing.assert_array_equal(
+        _bits(_median_kernel_emulation(src)),
+        _bits(torch_median.median_inplace_plain(_t(src)).numpy()))
+
+
+def test_median_inplace_all_invalid():
+    src = np.full((6, 8), np.inf, np.float32)
+    assert np.isinf(torch_refine.median_filter_3x3_inplace(_t(src))).all()
+    assert np.isinf(_median_kernel_emulation(src)).all()
+
+
+def test_median_inplace_leaves_input():
+    src = _holey_map(1, 10, 12)
+    t = _t(src.copy())
+    torch_refine.median_filter_3x3_inplace(t)
+    np.testing.assert_array_equal(t.numpy(), src)
+
+
+@pytest.mark.parametrize("case", ["scene", "random0", "random1"])
+def test_edge_detect_exact(scene, case):
+    if case == "scene":
+        disp = scene[1]["after_interpolation"]
+    else:
+        disp, _ = _random_disparities(int(case[-1]))
+    ours = torch_refine.edge_detect(_t(disp)).numpy()
+    ref = np.asarray(jax_refine.edge_detect(jnp.asarray(disp)))
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(ours, numpy_ref.edge_detect(disp) == 1)
+    assert ours.any() and not ours[0].any() and not ours[:, -1].any()
+
+
+def _dda_chain_case():
+    """tests/test_refine.py's chain: a staircase row of edge pixels whose
+    own costs fall leftward, so the leftmost disparity propagates."""
+    h, w, d_range = 5, 10, 8
+    disp = np.zeros((h, w), np.float32)
+    disp[2] = np.array([7, 0, 5, 6, 7, 6, 5, 6, 7, 0], np.float32)
+    cost = np.full((d_range, h, w), 9.0, np.float32)
+    for x in range(w):
+        cost[int(disp[2, x]), 2, x] = float(x)
+    return disp, cost, 0
+
+
+def _dda_random_case(seed, h=16, w=27, d_range=8, min_disparity=-4):
+    """Disparities from min_disparity - 1 to d_range + 3 (indices out of
+    [0, D) on both sides), with halves that lround rounds away from zero
+    and 10 % +inf; a random cost volume."""
+    rng = np.random.default_rng(seed)
+    disp = (rng.integers(min_disparity - 1, d_range + 4, (h, w))
+            + rng.choice([0.0, 0.25, 0.5, -0.5], (h, w))).astype(np.float32)
+    disp[rng.random((h, w)) < 0.1] = np.inf
+    cost = rng.random((d_range, h, w)).astype(np.float32)
+    return disp, cost, min_disparity
+
+
+DDA_CASES = ["chain", "random0", "random1", "random2"]
+
+
+def _dda_case(case):
+    return _dda_chain_case() if case == "chain" else _dda_random_case(
+        int(case[-1]))
+
+
+@pytest.mark.parametrize("case", DDA_CASES)
+def test_dda_exact(case):
+    """The plain adjustment equals JAX's and the oracle's bit for bit,
+    and changes the map."""
+    disp, cost, min_d = _dda_case(case)
+    d_range = cost.shape[0]
+    kw = dict(min_disparity=min_d, max_disparity=min_d + d_range)
+    ours = torch_refine.depth_discontinuity_adjustment(
+        _t(disp), _t(cost), ADCensusOptions(**kw)).numpy()
+    ref = np.asarray(jax_refine.depth_discontinuity_adjustment(
+        jnp.asarray(disp), jnp.asarray(cost), JaxOptions(**kw)))
+    oracle = numpy_ref.depth_discontinuity_adjustment(
+        disp, np.transpose(cost, (1, 2, 0)), JaxOptions(**kw))
+    np.testing.assert_array_equal(_bits(ours), _bits(ref))
+    np.testing.assert_array_equal(_bits(ours), _bits(oracle))
+    assert not np.array_equal(ours, disp)
+
+
+def _dda_kernel_emulation(disp, cost, edge):
+    """csrc/dda.cu, row by row: each row scans x carrying column x-1's
+    final value and its index, and gathers the left cost only where a
+    pixel is adjusted."""
+    d_range, h, w = cost.shape
+
+    def index_of(v):
+        if not np.isfinite(v):
+            return None
+        half = np.float32(0.5)
+        i = int(np.floor(v + half) if v >= 0 else np.ceil(v - half))
+        return i if 0 <= i < d_range else None
+
+    out = np.empty_like(disp)
+    for y in range(h):
+        prev_d, prev_i = None, None
+        for x in range(w):
+            d = disp[y, x]
+            di = index_of(d)
+            out_d = d
+            if di is not None and 1 <= x <= w - 2 and edge[y, x]:
+                c0 = cost[di, y, x]
+                if prev_i is not None and cost[prev_i, y, x - 1] < c0:
+                    out_d, c0 = prev_d, cost[prev_i, y, x - 1]
+                ri = index_of(disp[y, x + 1])
+                if ri is not None and cost[ri, y, x + 1] < c0:
+                    out_d = disp[y, x + 1]
+            out[y, x] = out_d
+            prev_d, prev_i = out_d, index_of(out_d)
+    return out
+
+
+@pytest.mark.parametrize("case", DDA_CASES)
+def test_dda_kernel_emulation_equals_plain(case):
+    disp, cost, _ = _dda_case(case)
+    edge = torch_refine.edge_detect(_t(disp))
+    np.testing.assert_array_equal(
+        _bits(_dda_kernel_emulation(disp, cost, edge.numpy())),
+        _bits(torch_dda.dda_plain(_t(disp), _t(cost), edge).numpy()))
+
+
+def test_dda_checks_its_inputs():
+    disp, cost, _ = _dda_random_case(0)
+    edge = torch_refine.edge_detect(_t(disp))
+    with pytest.raises(ValueError):
+        torch_dda.dda(_t(disp), _t(cost[:, :-1]), edge)
+    with pytest.raises(TypeError):
+        torch_dda.dda(_t(disp), _t(cost), edge.to(torch.uint8))
+    with pytest.raises(TypeError):
+        torch_median.median_inplace(_t(disp).double())
