@@ -53,20 +53,24 @@ def outlier_detection(
     disp_left: torch.Tensor,
     disp_right: torch.Tensor,
     opts: ADCensusOptions,
+    real_w: int | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """LR consistency check (multistep_refiner.cpp:90-151), exact.
 
     Returns (new_disp_left, occlusion_mask, mismatch_mask). The JAX
     package gathers by unrolled masked shifts over the offsets in range;
     here each lookup is one column gather, restricted to the same offset
-    range, so the outputs are equal."""
+    range, so the outputs are equal. ``real_w`` bounds the in-image
+    column checks of a map padded on the right (the sharded pipeline);
+    None is the map's width."""
     h, w = disp_left.shape
+    rw = w if real_w is None else real_w
     x = torch.arange(w, device=disp_left.device)[None, :]
     orig_valid = torch.isfinite(disp_left)
     d = disp_left
 
     col_right = lround(x - torch.where(orig_valid, d, 0.0))
-    cr_in = (col_right >= 0) & (col_right < w)
+    cr_in = (col_right >= 0) & (col_right < rw)
     offs = x - col_right
     (d_r,) = _gather_cols(
         (disp_right,),
@@ -87,7 +91,7 @@ def outlier_detection(
     col_rl = lround(
         torch.where(torch.isfinite(d_r), col_right + d_r, 0.0)
     )
-    rl_in = (col_rl > 0) & (col_rl < w)
+    rl_in = (col_rl > 0) & (col_rl < rw)
     span = opts.max_disparity - opts.min_disparity + 2
     offs = x - col_rl
     d_l_orig, rl_outlier, rl_valid = _gather_cols(
@@ -294,27 +298,43 @@ def median_filter_3x3_inplace(disp: torch.Tensor) -> torch.Tensor:
     return median_inplace(disp.contiguous())
 
 
-def median_filter_3x3(disp: torch.Tensor) -> torch.Tensor:
+def median_filter_3x3(
+    disp: torch.Tensor, in_image: torch.Tensor | None = None
+) -> torch.Tensor:
     """Out-of-place 3x3 median with border-clipped windows
     (adcensus_util.cpp:55-81). Out-of-image slots are +inf, which sorts
     last; the median index is (in-image window population) // 2, so
     invalid (inf) disparities inside the image count toward the
     population, like the reference's clipped window.
 
+    ``in_image``: an (H, W) bool mask of the real pixels of a padded map
+    (the sharded pipeline's slabs); None is the whole map. Slots outside
+    it are +inf, and the population counts the window's pixels in it.
+
     Deviation kept from the JAX package: the reference calls this with
     in == out, so its reads mix filtered and unfiltered neighbours.
     """
     h, w = disp.shape
     dev = disp.device
-    rows = 1 + (torch.arange(h, device=dev) > 0).long() + (
-        torch.arange(h, device=dev) < h - 1
-    ).long()
-    cols = 1 + (torch.arange(w, device=dev) > 0).long() + (
-        torch.arange(w, device=dev) < w - 1
-    ).long()
-    counts = rows[:, None] * cols[None, :]
+    if in_image is None:
+        rows = 1 + (torch.arange(h, device=dev) > 0).long() + (
+            torch.arange(h, device=dev) < h - 1
+        ).long()
+        cols = 1 + (torch.arange(w, device=dev) > 0).long() + (
+            torch.arange(w, device=dev) < w - 1
+        ).long()
+        counts = rows[:, None] * cols[None, :]
+        masked = disp
+    else:
+        masked = torch.where(in_image, disp, float("inf"))
+        inside = in_image.long()
+        counts = sum(
+            shift2d(inside, -dy, -dx, 0)
+            for dy in (-1, 0, 1)
+            for dx in (-1, 0, 1)
+        )
     stack = torch.stack([
-        shift2d(disp, -dy, -dx, float("inf"))
+        shift2d(masked, -dy, -dx, float("inf"))
         for dy in (-1, 0, 1)
         for dx in (-1, 0, 1)
     ])

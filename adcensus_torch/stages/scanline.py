@@ -42,27 +42,43 @@ def penalty_code(
 ) -> torch.Tensor:
     """(D, H, W) uint8 penalty-code volume for one pass direction."""
     h, w, _ = left.shape
-    dev = left.device
     direction = 1 if forward else -1
     dy, dx = (0, direction) if axis == "x" else (direction, 0)
     # d1[y, x] = dist(left[p], left[p - step]); the seed column is never read
     d1 = color_dist(left, shift2d(left, dy, dx, 0))
     # rd[y, x] = dist(right[y, x], right at p - step in the right image)
     rd = color_dist(right, shift2d(right, dy, dx, 0))
-    rd_col1 = rd[:, 1:2] if w > 1 else rd
+    return code_volume(d1, rd, opts, w, 0)
 
-    x = torch.arange(w, device=dev)[None, :]
+
+def code_volume(
+    d1: torch.Tensor,
+    rd: torch.Tensor,
+    opts: ADCensusOptions,
+    real_w: int,
+    col0: int,
+) -> torch.Tensor:
+    """(D, rows, out_w) uint8 penalty codes of columns [col0, col0 + out_w)
+    from their left-image distances ``d1`` (rows, out_w) and the right
+    image's ``rd`` (rows, W) at full width, since the epipolar lookup
+    rd[y, x - d] crosses any split of the columns; ``real_w`` is the
+    image's width. The sharded pipeline's ``_code_volume``."""
+    out_w = d1.shape[1]
+    w_full = rd.shape[1]
+    dev = rd.device
+    rd_col1 = rd[:, 1:2] if w_full > 1 else rd
+    x = col0 + torch.arange(out_w, device=dev)[None, :]
     d_abs = torch.arange(opts.disp_range, device=dev)[:, None] + opts.min_disparity
-    xr = x - d_abs  # (D, W)
-    use_d1 = (xr >= w - 1) | ((x - opts.min_disparity) <= 0)
+    xr = x - d_abs  # (D, out_w)
+    use_d1 = (xr >= real_w - 1) | ((x - opts.min_disparity) <= 0)
     # rd at column xr (out-of-range columns are never selected below)
-    shifted = rd[:, xr.clamp(0, w - 1)].permute(1, 0, 2)  # (D, H, W)
+    shifted = rd[:, xr.clamp(0, w_full - 1)].permute(1, 0, 2)  # (D, rows, out_w)
     sticky = torch.where((xr < 1)[:, None, :], rd_col1[None], shifted)
     d2 = torch.where(use_d1[:, None, :], d1[None], sticky)
     tso = opts.so_tso
     code = (d1[None] >= tso).to(torch.uint8) + (d2 >= tso).to(torch.uint8)
-    # the gather above leaves a (H, D, W) memory layout; the kernel reads
-    # the code volume through the cost volume's strides
+    # the gather above leaves a (rows, D, out_w) memory layout; the kernel
+    # reads the code volume through the cost volume's strides
     return code.contiguous()
 
 

@@ -60,6 +60,19 @@ imports nothing of JAX. Phases, each raising on failure:
    mode bitwise equal to ``match(..., gray_mode="host64")`` with the
    in-place median, and which image loader ran.
 
+10. sharded: the sharded layer (``adcensus_torch/parallel/``) at world
+   size 1: ``distributed.initialize`` on NCCL with a ``file://``
+   rendezvous under ``build/``, a (1, 1) mesh, then ``match_sharded`` on
+   the rows and disp layouts (roll), the rows layout with the [flags]
+   options and on the matmul backend, and ``match_sharded_batched`` of 2
+   pairs, each bitwise equal to ``match_device`` on the same device
+   grays, with the launches of one match (equal to the same path's
+   ``match_device``), host-clock ms a match beside ``match_device``'s,
+   timed in turns, and the device's busy time in a profiled call of each;
+   the process group is destroyed after. One card runs
+   one rank: NCCL takes no two ranks on a card, so the collectives run
+   at one rank, and the tests run 2 and 4 ranks on the CPU over gloo.
+
 The last two lines of its output are a JSON object of per-kernel numbers
 and ``{"ok": true, "device": {...}}``.
 """
@@ -93,6 +106,14 @@ MEDIAN_EXTRA = ((555, 653), (1100, 64))  # M1 beside the JSON's case
 SORT_OPS = 2 * 25  # min and max of the fewest comparators that sort 9
 CLI_DIR = Path(__file__).resolve().parent / "build" / "cli"
 CLI_TIMEOUT_S = 300
+SHARDED_STORE = Path(__file__).resolve().parent / "build" / "sharded_store"
+# [sharded]: (label, volume_axis, cross_backend, path whose options and
+# match_device launches it is held to)
+SHARDED_CASES = (("rows", "rows", "roll", "main"),
+                 ("disp", "disp", "roll", "main"),
+                 ("rows flags", "rows", "roll", "flags"),
+                 ("rows matmul", "rows", "matmul", "matmul"))
+SHARDED_BATCH = 2
 
 KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
              #          the CUDA function the profiler names)
@@ -863,6 +884,11 @@ def main() -> int:
     # 9. the CLI in parity mode, as a user runs it
     drive_cli(torch, dev, left_np, right_np, gt, card)
 
+    # 10. the sharded layer at world size 1 on NCCL
+    drive_sharded(torch, dev, left, right, {"main": opts, "matmul": opts,
+                                            "flags": opts_flags},
+                  path_launches, card)
+
     kernels = []
     for name, (source, replaces, path, _) in KERNELS.items():
         r = results[name]
@@ -1166,6 +1192,96 @@ def drive_cli(torch, dev, left_np, right_np, gt, card):
           f"{int((disp != default).sum())} pixels differ; card {card}")
     for line in stages:
         print(f"[cli --parity --timing] {line.strip()}")
+
+
+def drive_sharded(torch, dev, left, right, path_opts, path_launches, card):
+    """Phase 10: ``match_sharded`` and ``match_sharded_batched`` at world
+    size 1 on NCCL, each bitwise ``match_device`` with the same launches
+    a match, and ms a match beside ``match_device``'s in turns. A failed
+    NCCL start or any mismatch raises; nothing falls back."""
+    import torch.distributed as dist
+
+    from adcensus_torch.ops import _build
+    from adcensus_torch.parallel import distributed, sharded
+    from adcensus_torch.parallel.mesh import make_mesh
+    from adcensus_torch.stages import cost as cost_stage
+    from adcensus_torch.stages import pipeline
+    from adcensus_torch.synthetic import two_layer_pair
+
+    SHARDED_STORE.parent.mkdir(parents=True, exist_ok=True)
+    SHARDED_STORE.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    distributed.initialize(init_method=SHARDED_STORE.as_uri(), world_size=1,
+                           rank=0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"[sharded] backend {dist.get_backend()}")
+        mesh = make_mesh(1, 1)
+        init_s = time.perf_counter() - t0
+        gray_l = cost_stage.compute_gray(left)
+        gray_r = cost_stage.compute_gray(right)
+        for label, axis, backend, path in SHARDED_CASES:
+            opts = path_opts[path]
+
+            def one():
+                return sharded.match_sharded(left, right, gray_l, gray_r,
+                                             opts, mesh, backend, axis)
+
+            def device():
+                return pipeline.match_device(left, right, opts, device=dev,
+                                             cross_backend=backend)
+
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            out = one()
+            torch.cuda.synchronize()
+            launches = dict(_build.launches)
+            if launches != path_launches[path]:
+                raise AssertionError(
+                    f"[sharded {label}] launched {launches} in one match, "
+                    f"[{path}] {path_launches[path]}")
+            assert_bitwise(torch, f"[sharded {label}]", out, device())
+            ms_d1, ms_s1, ms_s2, ms_d2 = (host_ms(torch, f) for f in
+                                          (device, one, one, device))
+            print(f"[sharded {label}] world 1 (NCCL), volume_axis={axis!r} "
+                  f"cross_backend={backend!r}: median {ms_s1[0]:.3f} / "
+                  f"{ms_s2[0]:.3f} ms a match of {MATCH_RUNS} (min "
+                  f"{min(ms_s1[1], ms_s2[1]):.3f}); match_device "
+                  f"{ms_d1[0]:.3f} / {ms_d2[0]:.3f} (in turns D S S D); "
+                  f"launches {launches} as [{path}]; bitwise match_device; "
+                  f"card {card}")
+            print_call_profile(torch, f"sharded {label}", ms_s1[0], 1, one)
+            print_call_profile(torch, f"sharded {label} match_device",
+                               ms_d1[0], 1, device)
+
+        pairs = [two_layer_pair(H, W, D_BG, D_FG, seed=s)[:2]
+                 for s in range(SHARDED_BATCH)]
+        lefts = torch.stack([torch.as_tensor(l, device=dev) for l, _ in pairs])
+        rights = torch.stack([torch.as_tensor(r, device=dev)
+                              for _, r in pairs])
+        opts = path_opts["main"]
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        out = sharded.match_sharded_batched(
+            lefts, rights, cost_stage.compute_gray(lefts),
+            cost_stage.compute_gray(rights), opts, mesh)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        want = {k: SHARDED_BATCH * v for k, v in path_launches["main"].items()}
+        if launches != want:
+            raise AssertionError(f"[sharded batched] launched {launches}, "
+                                 f"expected {want}")
+        if tuple(out.shape) != (SHARDED_BATCH, H, W):
+            raise AssertionError(f"[sharded batched] shape {out.shape}")
+        for b in range(SHARDED_BATCH):
+            assert_bitwise(torch, f"[sharded batched] pair {b}", out[b],
+                           pipeline.match_device(lefts[b], rights[b], opts,
+                                                 device=dev))
+        print(f"[sharded batched] {SHARDED_BATCH} pairs on a (1, 1) mesh: "
+              f"launches {launches} ({SHARDED_BATCH} x [main]); each pair "
+              f"bitwise match_device; NCCL start and mesh {init_s:.2f} s")
+    finally:
+        dist.destroy_process_group()
 
 
 def where_time_goes(torch, left, right, opts, dev, expect, tag, ms):

@@ -1,4 +1,4 @@
-"""The five CUDA kernels of adcensus_torch against their plain PyTorch
+"""The CUDA kernels of adcensus_torch against their plain PyTorch
 versions on the card, bitwise, at shapes and options the main path of
 chip_smoke.py does not reach: arms beyond 127, D from 1 to 1024, padded
 scan steps and B2's partial chunks and blocks at several launch
@@ -18,7 +18,10 @@ adjustment) cover one-pixel-wide and -high maps, the Cone, Wood2 and
 1100x64 sizes (more rows than a block has threads), maps all +inf,
 disparities whose cost index falls outside [0, D), the Cone-size pair's
 own refinement maps, both stages under sync debug mode "error", the match
-with both flags and a batched graph with both flags.
+with both flags and a batched graph with both flags. The sharded layer
+at world size 1 on NCCL: both layouts, the flags and the matmul backend
+bitwise match_device with its launches, the batched call, no host sync;
+and B1 and B3 on a rank's haloed row slab.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports no
 JAX, so on the GPU host it runs without the JAX test configuration:
@@ -943,3 +946,170 @@ def test_failed_capture_raises_with_its_stage(dev, monkeypatch):
                                       device=dev)
     assert torch.cuda.current_stream(dev) == stream
     assert not graphs.cached()
+
+
+# The sharded layer (adcensus_torch/parallel/) at world size 1 on NCCL:
+# one card takes one rank. label -> (volume_axis, cross_backend, options)
+SHARDED_CASES = {
+    "rows": ("rows", "roll", {}),
+    "disp": ("disp", "roll", {}),
+    "rows_flags": ("rows", "roll", FLAGS),
+    "rows_matmul": ("rows", "matmul", {}),
+    "disp_matmul": ("disp", "matmul", {}),
+}
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A (1, 1) mesh over a world of one on NCCL, torn down after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import torch.distributed as dist
+
+    from adcensus_torch.parallel import distributed
+    from adcensus_torch.parallel.mesh import make_mesh
+
+    store = tmp_path_factory.mktemp("nccl") / "store"
+    distributed.initialize(store.as_uri(), world_size=1, rank=0)
+    assert dist.get_backend() == "nccl"
+    yield make_mesh(1, 1)
+    dist.destroy_process_group()
+
+
+def _sharded_pair(dev, seed=3):
+    left, right, _ = two_layer_pair(60, 200, 4, 9, seed=seed)
+    lt, rt = (torch.as_tensor(x, device=dev) for x in (left, right))
+    return lt, rt, cost_stage.compute_gray(lt), cost_stage.compute_gray(rt)
+
+
+def _launches_of(fn):
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.launches)
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+def test_sharded_world_of_one_equals_match_device(nccl_mesh, case):
+    """match_sharded at world size 1: bitwise match_device on the same
+    device grays, with the same kernel launches (B1 4 and B3 10 on roll,
+    B2 4, B4 2, M1 and M2 1 with the flags)."""
+    from adcensus_torch.parallel import sharded
+
+    dev = torch.device("cuda")
+    axis, backend, extra = SHARDED_CASES[case]
+    opts = ADCensusOptions(max_disparity=32, **extra)
+    lt, rt, gl, gr = _sharded_pair(dev)
+    want, want_launches = _launches_of(lambda: pipeline.match_core(
+        lt, rt, gl, gr, opts, cross_backend=backend)["disparity"])
+    out, launches = _launches_of(lambda: sharded.match_sharded(
+        lt, rt, gl, gr, opts, nccl_mesh, backend, axis))
+    _assert_bitwise(out, want)
+    assert launches == want_launches
+    assert launches["scanline"] == 4 and launches["ray_interp"] == 2
+    roll = backend == "roll"
+    assert launches["cross_sum"] == 4 * roll
+    assert launches["region_vote"] == 10 * roll
+    assert launches["median_inplace"] == launches["dda"] == int(bool(extra))
+
+
+def test_sharded_batched_world_of_one(nccl_mesh):
+    from adcensus_torch.parallel import sharded
+
+    dev = torch.device("cuda")
+    opts = ADCensusOptions(max_disparity=32)
+    pairs = [_sharded_pair(dev, seed) for seed in (3, 4)]
+    stacks = [torch.stack(t) for t in zip(*pairs)]
+    out = sharded.match_sharded_batched(*stacks, opts, nccl_mesh)
+    assert out.shape == (2, 60, 200)
+    for b, pair in enumerate(pairs):
+        _assert_bitwise(out[b], pipeline.match_core(*pair, opts)["disparity"])
+
+
+def test_sharded_syncs_no_host(nccl_mesh):
+    """The sharded body reads nothing back from the card: a match at
+    world size 1 runs under sync debug mode "error"."""
+    from adcensus_torch.parallel import sharded
+
+    dev = torch.device("cuda")
+    opts = ADCensusOptions(max_disparity=32, **FLAGS)
+    args = _sharded_pair(dev)
+    want = sharded.match_sharded(*args, opts, nccl_mesh)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sharded.match_sharded(*args, opts, nccl_mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _assert_bitwise(out, want)
+
+
+# (first own row, own rows) of a rank's slab in a 90-row image with a
+# 12-row halo: the first, a middle and the last rank, and a slab thinner
+# than its halo (a multi-hop exchange's)
+SLABS = [(0, 30), (30, 30), (60, 30), (40, 7)]
+SLAB_HALO = 12
+
+
+def _haloed(t, r0, rows, fill=0):
+    """Rows [r0 - SLAB_HALO, r0 + rows + SLAB_HALO) of ``t`` (rows on
+    dim 0), ``fill`` beyond the image: what the rows layout gives a
+    kernel."""
+    pad = t.new_full((SLAB_HALO,) + tuple(t.shape[1:]), fill)
+    return torch.cat([pad, t, pad])[r0 : r0 + rows + 2 * SLAB_HALO]
+
+
+@pytest.mark.parametrize("horizontal_first", [True, False])
+def test_cross_sum_on_haloed_slab(dev, horizontal_first):
+    """B1 on a rank's haloed slab with max_arm = halo: the own rows are
+    bitwise the plain version's on the slab and the full image's."""
+    opts = ADCensusOptions(cross_L1=SLAB_HALO, cross_L2=6)
+    left = torch.as_tensor(two_layer_pair(90, 120, 3, 7, seed=6)[0],
+                           device=dev)
+    a = arms.build_arms(left, opts)
+    rng = np.random.default_rng(6)
+    vol = torch.as_tensor(rng.random((8, 90, 120), np.float32), device=dev)
+    sup = aggregate.support_counts(a, SLAB_HALO)[0 if horizontal_first
+                                                 else 1].float()
+    full = cross_sum.cross_pass(vol, a, sup, horizontal_first, SLAB_HALO)
+    for r0, rows in SLABS:
+        args = (_haloed(vol.transpose(0, 1), r0, rows).transpose(0, 1)
+                .contiguous(), _haloed(a, r0, rows),
+                _haloed(sup, r0, rows, 1.0), horizontal_first, SLAB_HALO)
+        own = slice(SLAB_HALO, SLAB_HALO + rows)
+        out = cross_sum.cross_pass(*args)[:, own]
+        _assert_bitwise(out, cross_sum.cross_pass_plain(*args)[:, own])
+        _assert_bitwise(out, full[:, r0 : r0 + rows])
+
+
+def test_region_vote_on_haloed_slab(dev):
+    """B3 on a rank's haloed slab, no target in the halo rows: bitwise
+    the plain version everywhere, and the full image's statistics on
+    the own rows."""
+    d_range = 16
+    opts = ADCensusOptions(max_disparity=d_range, cross_L1=SLAB_HALO,
+                           cross_L2=6)
+    left = torch.as_tensor(two_layer_pair(90, 120, 3, 7, seed=7)[0],
+                           device=dev)
+    a = arms.build_arms(left, opts)
+    rng = np.random.default_rng(7)
+    disp = rng.uniform(0, d_range, (90, 120)).astype(np.float32)
+    disp[rng.random((90, 120)) < 0.3] = np.inf
+    disp = torch.as_tensor(disp, device=dev)
+    target = torch.as_tensor(rng.random((90, 120)) < 0.2, device=dev)
+    di, valid = refine.vote_indices(disp, opts)
+    full = region_vote.region_vote_stats(di, valid, a, d_range, SLAB_HALO,
+                                         target=target)
+    for r0, rows in SLABS:
+        own = slice(SLAB_HALO, SLAB_HALO + rows)
+        sdi, svalid = refine.vote_indices(_haloed(disp, r0, rows), opts)
+        t = _haloed(target, r0, rows, False)
+        t[: SLAB_HALO] = False
+        t[SLAB_HALO + rows :] = False
+        args = (sdi, svalid, _haloed(a, r0, rows), d_range, SLAB_HALO)
+        out = region_vote.region_vote_stats(*args, target=t)
+        plain = region_vote.region_vote_stats_plain(*args, target=t)
+        for k, p, f in zip(out, plain, full):
+            _assert_bitwise(k, p)
+            _assert_bitwise(k[own], f[r0 : r0 + rows])
