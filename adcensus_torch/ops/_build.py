@@ -121,6 +121,17 @@ def build(names=None) -> dict:
     return {n: _entries[n] for n in names}
 
 
+def entry(name: str, symbol: str, argtypes):
+    """Another C entry point ``symbol`` of kernel ``name``'s library,
+    built on first use, such as a probe that ``chip_smoke.py`` times. It
+    returns an int error code; its calls are not counted."""
+    build([name])
+    fn = getattr(ctypes.CDLL(str(_library(name))), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry point (building it on first use),
     raise on a CUDA error, and count the launch."""

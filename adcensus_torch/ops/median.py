@@ -13,6 +13,11 @@ CPU tensor.
 Window populations count in-image +inf disparities, like the reference's
 clipped window; out-of-image slots are +inf, which sorts last, and the
 median is the (population // 2)-th smallest of the nine.
+
+``median_inplace_geometry`` and ``median_inplace_schedule`` give the
+kernel's launch geometry and its walk over the wavefronts (one block, a
+thread a row, rows striding by the block's threads in bands); the CPU
+tests emulate the kernel from them lane by lane.
 """
 from __future__ import annotations
 
@@ -20,6 +25,82 @@ import torch
 
 from adcensus_torch.ops import _build
 from adcensus_torch.ops.basic import kernels_for
+
+# csrc/median_inplace.cu's constants (the kernel's k-prefixed names)
+WARP = 32
+MAX_THREADS = 1024  # one block
+MAX_HEIGHT = 2 ** 22  # banded virtual columns stay below 2^24 (float-exact)
+IN_RING = 32  # columns of originals a stream keeps in shared memory
+CHUNK = 16  # columns a refill brings; streams refilled each step: 2
+LEAD = 16  # a refill's first column, ahead of its stream's own column
+LAG = 12  # steps between a refill's issue and its first read
+OUT_RING = 16  # filtered columns a row keeps before they are stored
+HANDOFF = 4  # steps of the warp-boundary ring, indexed t mod 4
+WRAP = 32  # slots of the band-boundary queue
+MARGIN = 2  # steps before a row's first pixel that belong to its band
+FIRST_STEP = -(LEAD + CHUNK)  # the refills' head start
+TAIL = CHUNK  # steps after the last pixel that store the last chunk
+
+
+def median_inplace_geometry(h: int, w: int, max_threads: int = MAX_THREADS):
+    """Launch geometry of kernel M1 for an (H, W) map: (threads, rows a
+    thread, dynamic shared bytes). One block: a thread a row up to
+    ``max_threads`` rows (the CPU emulation passes fewer than the
+    kernel's MAX_THREADS); a taller map in bands of about W / 2 + 64
+    rows (the rows a band has at work at once), at most ``max_threads``;
+    thread i owns rows i, i + threads, ... Raises ValueError for what the
+    kernel cannot index: an empty map, H * W of 2^31 or more, more than
+    MAX_HEIGHT rows, or a walk of 2^31 steps or more (a single-row map
+    within 64 pixels of 2^31)."""
+    if h < 1 or w < 1:
+        raise ValueError(f"median_inplace needs H, W >= 1, got {h}, {w}")
+    if h * w >= 2 ** 31:
+        raise ValueError(f"median_inplace indexes the map in 32 bits: "
+                         f"H*W = {h * w} is too large")
+    if h > MAX_HEIGHT:
+        raise ValueError(f"median_inplace takes at most {MAX_HEIGHT} rows, "
+                         f"got {h}")
+    if h <= max_threads:
+        threads = -(-h // WARP) * WARP
+    else:
+        threads = min((w // 2 + 2 * WARP) // WARP * WARP, max_threads)
+    rows = -(-h // threads)
+    if _last_step(h, w, threads) + TAIL + LEAD + CHUNK >= 2 ** 31:
+        raise ValueError(f"median_inplace counts its steps in 32 bits: "
+                         f"{h}x{w} is too wide")
+    ring_floats = (WARP + 1) * (IN_RING + 1) + WARP * (OUT_RING + 1)
+    smem = 4 * (threads // WARP * (ring_floats + HANDOFF) + WRAP)
+    return threads, rows, smem
+
+
+def _band_delay(w: int, threads: int, rows: int) -> int:
+    """E: a thread's rows must not overlap (P - MARGIN >= W), and a band's
+    first row reads the row above from the output LAG steps before its
+    use, a step after the last band's thread stored it."""
+    return max(w - 2 * threads + MARGIN, LAG) if rows > 1 else 0
+
+
+def _last_step(h: int, w: int, threads: int) -> int:
+    rows = -(-h // threads)
+    period = 2 * threads + _band_delay(w, threads, rows)
+    return w - 1 + 2 * ((h - 1) % threads) + (h - 1) // threads * period
+
+
+def median_inplace_schedule(h: int, w: int, max_threads: int = MAX_THREADS):
+    """Kernel M1's walk: (band delay E, band period P, last pixel step).
+
+    Thread i is at virtual column v = t - 2i at step t: row
+    k * threads + i at column x = v - k * P, P = 2 * threads + E, so that
+    pixel (y, x) of band k runs at step x + 2y + k * E. Within a band a
+    row runs two steps behind the row above (t = x + 2y); each further
+    band starts E steps later than that: E >= W - 2 * threads + MARGIN
+    so that a thread's rows do not overlap, and E >= LAG so that the
+    band's first row reads the row above it from the output LAG steps
+    ahead, after it was stored. One band (H <= threads): E = 0. The walk
+    runs from FIRST_STEP to the last pixel's step plus TAIL."""
+    threads, rows, _ = median_inplace_geometry(h, w, max_threads)
+    delay = _band_delay(w, threads, rows)
+    return delay, 2 * threads + delay, _last_step(h, w, threads)
 
 
 def _shear(a: torch.Tensor, t_cols: int, fill) -> torch.Tensor:
@@ -114,13 +195,12 @@ def median_inplace(disp: torch.Tensor) -> torch.Tensor:
     _build.check("disp", disp, torch.float32, (h, w), disp.device)
     if not kernels_for(disp):
         return median_inplace_plain(disp)
-    if h * w >= 2 ** 31:
-        raise ValueError(f"median_inplace indexes the map in 32 bits: "
-                         f"H*W = {h * w} is too large")
+    if not h * w:
+        return torch.empty_like(disp)
+    median_inplace_geometry(h, w)  # raises on what the kernel refuses
     out = torch.empty_like(disp)
-    if h * w:
-        _build.launch(
-            "median_inplace", disp.data_ptr(), out.data_ptr(), h, w,
-            torch.cuda.current_stream(disp.device).cuda_stream,
-        )
+    _build.launch(
+        "median_inplace", disp.data_ptr(), out.data_ptr(), h, w,
+        torch.cuda.current_stream(disp.device).cuda_stream,
+    )
     return out

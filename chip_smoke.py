@@ -24,8 +24,11 @@ imports nothing of JAX. Phases, each raising on failure:
    own bounds; one dense band-matrix aggregation iteration beside B1, not
    bitwise; M2 (discontinuity adjustment) on the main path's interpolated
    map and cost_scan, and M1 (the in-place median) on what M2 gives, as
-   the [flags] path runs them, with M1's time per wavefront, and M1 also
-   at the Wood2 size and on 1100x64 (more rows than a block has threads);
+   the [flags] path runs them, with M1's time per wavefront and its
+   recurrence bound (the wavefronts times the cycles of its critical
+   chain of one step, timed by a probe on the card, over the top SM
+   clock) beside the bytes bound, and M1 also at the Wood2 size and on
+   1100x64 (more rows than a block has threads);
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
    backend), with the launch counts of one match, the match time, bitwise
@@ -314,7 +317,7 @@ def kernel_cases(torch, inter, left, opts):
             lambda a=args: scanline.scanline_pass(*a),
             lambda a=args: scanline.scanline_pass_plain(*a), None,
             dhw * 9 + len(flags) * 4, dhw * 9,
-            (w if axis == "x" else h, "scan step"),
+            (w if axis == "x" else h, "scan step", None),
         ))
 
     cases["region_vote"] = [
@@ -377,18 +380,62 @@ def dda_case(torch, label, disp, cost, edge, adjusted):
 
 
 def median_case(torch, label, disp):
-    """M1's case, with its time per wavefront (W + 2H - 2 of them). Its
-    bound: the map read and written (8 B a pixel) and SORT_OPS a pixel."""
+    """M1's case, with its time per wavefront (W + 2H - 2 of them) and
+    its recurrence bound (median_recurrence). Its bytes bound: the map
+    read and written (8 B a pixel) and SORT_OPS a pixel. The label gives
+    the kernel's block, rows a thread and walk (its steps, band delays,
+    head start and tail included)."""
     from adcensus_torch.ops import median
 
     h, w = disp.shape
     waves = w + 2 * h - 2
+    threads, rows, _ = median.median_inplace_geometry(h, w)
+    _, _, last = median.median_inplace_schedule(h, w)
+    walk = last + median.TAIL - median.FIRST_STEP + 1
     return (
-        f"{label} {h}x{w} ({waves} wavefronts)",
+        f"{label} {h}x{w} ({waves} wavefronts; {threads} threads, {rows} "
+        f"row(s) a thread, a walk of {walk} steps)",
         lambda: median.median_inplace(disp),
         lambda: median.median_inplace_plain(disp), None,
-        h * w * 8, h * w * SORT_OPS, (waves, "wavefront"),
+        h * w * 8, h * w * SORT_OPS,
+        (waves, "wavefront", median_recurrence(torch, threads, waves)),
     )
+
+
+def median_recurrence(torch, threads, waves, steps=4096):
+    """M1's recurrence bound: ``waves`` wavefronts, each no shorter than
+    the kernel's critical chain of one step (the up-right value merged
+    by two min/max and handed on by shuffle and the warp-boundary ring,
+    then the barrier), timed by ``adc_median_chain_cycles`` in clock64
+    cycles on a block of ``threads`` threads that runs only that chain,
+    over the card's top SM clock (``nvidia-smi`` clocks.max.sm). Returns
+    (bound ms, cycles a step, MHz)."""
+    import ctypes
+
+    from adcensus_torch.ops import _build
+
+    probe = _build.entry("median_inplace", "adc_median_chain_cycles", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p))
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.empty(threads, device="cuda")
+    for _ in range(2):  # the second run, warm
+        err = probe(cycles.data_ptr(), sink.data_ptr(), threads, steps,
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"adc_median_chain_cycles failed: {err}")
+    per_step = int(cycles.item()) / steps
+    mhz = sm_clock_mhz()
+    return waves * per_step / (mhz * 1e3), per_step, mhz
+
+
+def sm_clock_mhz() -> float:
+    """The card's top SM clock in MHz (``nvidia-smi`` clocks.max.sm)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(smi.stdout.strip().splitlines()[0].split()[0])
 
 
 def median_extra_cases(torch, dev):
@@ -667,8 +714,14 @@ def measure_case(torch, name, case):
         l_ms = time_ms(torch, library)
         lib_note = f", library {l_ms:.4f} ms (max |diff| {lib_err:.3g})"
     if steps:  # a recurrence's latency a step, against its bound
-        (n_steps, unit), = steps
+        (n_steps, unit, recurrence), = steps
         lib_note += f", {k_ms * 1e6 / n_steps:.1f} ns per {unit}"
+        if recurrence is not None:
+            rec_ms, per_step, mhz = recurrence
+            which = "recurrence" if rec_ms > b_ms else "bytes"
+            lib_note += (f", recurrence bound {rec_ms:.4f} ms ({per_step:.1f}"
+                         f" cycles a {unit} at {mhz:.0f} MHz; {which} "
+                         "bounds it)")
     print(f"[kernel] {name} {label}: {k_ms:.4f} ms, plain {p_ms:.4f} ms"
           f"{lib_note}, bound {b_ms:.4f} ms ({b_kind}, "
           f"{n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.2f} G operations); "

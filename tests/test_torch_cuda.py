@@ -15,7 +15,10 @@ and map shapes, in-image NaN, other ray counts and launch geometries, the
 Cone-size pair's own phases, and the interpolation stage under sync debug
 mode "error". M1's (the in-place median) and M2's (discontinuity
 adjustment) cover one-pixel-wide and -high maps, the Cone, Wood2 and
-1100x64 sizes (more rows than a block has threads), maps all +inf,
+1100x64 sizes (more rows than a block has threads), M1 at its design's
+boundaries (heights of 32k +- 1, two and three bands of rows, widths
+below a refill's chunk, bands wider than the block's lead, rows all
++inf, the height limit), maps all +inf,
 disparities whose cost index falls outside [0, D), the Cone-size pair's
 own refinement maps, both stages under sync debug mode "error", the match
 with both flags and a batched graph with both flags. The sharded layer
@@ -538,6 +541,19 @@ def test_match_device_equals_plain_pipeline(dev):
 FLAG_SHAPES = {"1x50": (1, 50), "50x1": (50, 1), "2x2": (2, 2),
                "1x1": (1, 1), "9x11": (9, 11), "cone": (375, 450),
                "wood2": (555, 653), "1100x64": (1100, 64)}
+# M1's design boundaries: heights of 32k +- 1 (a warp boundary inside the
+# block or just past it), the first height with two rows a thread (1025),
+# widths below a refill's 16-column chunk and its lead, bands of 64 to
+# 1024 rows, and bands whose rows are wider than twice the block
+# (E = W - 2 * threads + 2 > LAG)
+MEDIAN_SHAPES = {
+    **FLAG_SHAPES, "31x40": (31, 40), "33x40": (33, 40), "63x17": (63, 17),
+    "65x17": (65, 17), "95x9": (95, 9), "97x130": (97, 130),
+    "1023x20": (1023, 20), "1025x50": (1025, 50), "1025x3": (1025, 3),
+    "3x2000": (3, 2000), "2x5000": (2, 5000), "1x3000": (1, 3000),
+    "2049x64": (2049, 64), "1025x2100": (1025, 2100),
+    "1500x1": (1500, 1), "3000x2300": (3000, 2300),
+}
 
 
 def _holey_map(dev, h, w, seed, share=0.15):
@@ -550,10 +566,10 @@ def _holey_map(dev, h, w, seed, share=0.15):
     return torch.as_tensor(src, device=dev)
 
 
-@pytest.mark.parametrize("shape", sorted(FLAG_SHAPES))
+@pytest.mark.parametrize("shape", sorted(MEDIAN_SHAPES))
 def test_median_inplace_bitwise(dev, shape):
     """M1, one launch, against its plain version."""
-    h, w = FLAG_SHAPES[shape]
+    h, w = MEDIAN_SHAPES[shape]
     src = _holey_map(dev, h, w, seed=h + w)
     _build.reset_launches()
     out = median.median_inplace(src)
@@ -561,9 +577,10 @@ def test_median_inplace_bitwise(dev, shape):
     _assert_bitwise(out, median.median_inplace_plain(src))
 
 
-@pytest.mark.parametrize("shape", ["2x2", "cone", "1100x64"])
+@pytest.mark.parametrize("shape", ["2x2", "cone", "1100x64", "33x40",
+                                   "1025x50", "1025x2100"])
 def test_median_inplace_all_invalid(dev, shape):
-    src = torch.full(FLAG_SHAPES[shape], float("inf"), device=dev)
+    src = torch.full(MEDIAN_SHAPES[shape], float("inf"), device=dev)
     out = median.median_inplace(src)
     _assert_bitwise(out, median.median_inplace_plain(src))
     assert bool(torch.isinf(out).all())
@@ -575,6 +592,24 @@ def test_median_inplace_checks_its_input(dev):
         median.median_inplace(src.double())
     with pytest.raises(ValueError):
         median.median_inplace(src.t())
+
+
+@pytest.mark.parametrize("shape", ["33x40", "1025x50", "1025x2100"])
+def test_median_inplace_rows_all_invalid(dev, shape):
+    """Every third row all +inf."""
+    h, w = MEDIAN_SHAPES[shape]
+    src = _holey_map(dev, h, w, seed=h + 3 * w)
+    src[::3] = float("inf")
+    _assert_bitwise(median.median_inplace(src),
+                    median.median_inplace_plain(src))
+
+
+def test_median_inplace_refuses_past_its_height(dev):
+    _build.reset_launches()
+    with pytest.raises(ValueError):
+        median.median_inplace(torch.zeros((median.MAX_HEIGHT + 1, 1),
+                                          device=dev))
+    assert _build.launches["median_inplace"] == 0
 
 
 def _dda_inputs(dev, h, w, min_disparity, seed, d_range=16):

@@ -375,11 +375,13 @@ def test_median_inplace_scene(scene):
 
 
 def _median_kernel_emulation(src):
-    """csrc/median_inplace.cu, pixel by pixel: wavefront t = x + 2y in
-    order, the nine reads of each pixel (filtered from the output buffer,
-    original from the input), the odd-even transposition network of
-    min/max pairs, the rank from the border distances. The output starts
-    as NaN, so a read of a pixel not yet written shows."""
+    """The wavefront order of kernel M1, pixel by pixel: wavefront
+    t = x + 2y in order, the nine reads of each pixel (filtered from the
+    output buffer, original from the input), the odd-even transposition
+    network of min/max pairs, the rank from the border distances (the
+    kernel's first design; tests/test_torch_median_geometry.py emulates
+    the present one lane by lane). The output starts as NaN, so a read of
+    a pixel not yet written shows."""
     h, w = src.shape
     out = np.full_like(src, np.nan)
     inf = np.float32(np.inf)
