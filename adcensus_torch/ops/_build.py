@@ -43,7 +43,7 @@ SIGNATURES = {
                    _I, _P),
     "band_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "median_inplace": (_P, _P, _I, _I, _P),
-    "dda": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dda": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 # Kernel launches since the last reset, by kernel name. Only launch()

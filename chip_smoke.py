@@ -22,13 +22,17 @@ imports nothing of JAX. Phases, each raising on failure:
    with its mean and largest count of selected slots a column; B1, B3
    and B5 also at Cone size with arms that reach the cap, beside their
    own bounds; one dense band-matrix aggregation iteration beside B1, not
-   bitwise; M2 (discontinuity adjustment) on the main path's interpolated
-   map and cost_scan, and M1 (the in-place median) on what M2 gives, as
-   the [flags] path runs them, with M1's time per wavefront and its
-   recurrence bound (the wavefronts times the cycles of its critical
-   chain of one step, timed by a probe on the card, over the top SM
-   clock) beside the bytes bound, and M1 also at the Wood2 size and on
-   1100x64 (more rows than a block has threads);
+   bitwise; M2 (discontinuity adjustment, its Sobel mask included) on
+   the main path's interpolated map and cost_scan, and M1 (the in-place
+   median) on what M2 gives, as the [flags] path runs them, with M1's
+   time per wavefront and its recurrence bound (the wavefronts times the
+   cycles of its critical chain of one step, timed by a probe on the
+   card, over the top SM clock) and M2's time per 32-column chunk and
+   its chain bound (the longest run of pixels that take the value on
+   their left times the cycles of a chained gather, timed by a probe)
+   beside the bytes bound; M1 also at the Wood2 size and on 1100x64
+   (more rows than a block has threads), M2 also at the Wood2 size on a
+   random map and on a striped map whose edges run along whole rows;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
    backend), with the launch counts of one match, the match time, bitwise
@@ -97,6 +101,7 @@ RUN_TARGET_MS = 5.0                # about this long a run
 MAX_CALLS = 200                    # calls per run at most
 SLEEP_CYCLES_PER_S = 2.0e9         # above the H100's top SM clock
 MATCH_RUNS = 7
+PROFILE_TRIES = 3                  # profiled calls until one records kernels
 MEM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 SCALAR_OPS_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 BAD2_LIMIT_PCT = 10.0
@@ -344,39 +349,170 @@ def flag_cases(torch, inter):
     path's interpolated map and cost_scan (the stages before it do not
     depend on the flags), M1 on what M2 gives."""
     from adcensus_torch.ops import dda
-    from adcensus_torch.stages import refine
 
     disp, cost = inter["after_interpolation"], inter["cost_scan"]
-    edge = refine.edge_detect(disp)
-    adjusted = dda.dda(disp, cost, edge)
-    return ([dda_case(torch, "interpolated map", disp, cost, edge,
-                      adjusted)],
+    adjusted = dda.dda(disp, cost)
+    return ([dda_case(torch, "interpolated map", disp, cost, adjusted)],
             [median_case(torch, "adjusted map", adjusted)])
 
 
-def dda_case(torch, label, disp, cost, edge, adjusted):
-    """M2's case, labelled with its edge pixels and those it changed. Its
-    bound: the map and the edge mask read and the map written (9 B a
-    pixel), and at each pixel it adjusts (an interior edge pixel whose own
-    index is in range) the cost cells it compares: its own, the left
-    neighbour's final value's and the right neighbour's where their
-    indices are in range (4 B each); two comparisons a candidate."""
+def dda_case(torch, label, disp, cost, adjusted):
+    """M2's case, labelled with its edge pixels, those it may adjust and
+    those it changed, and the longest run of pixels that each take the
+    value on their left (take_left_run), with its time per 32-column chunk
+    and its chain bound (dda_chain). Its bytes bound: the map read and
+    written (8 B a pixel; the Sobel reads the map too), and at each
+    adjustable pixel (an interior edge pixel whose own index is in range)
+    the cost cells it compares: its own, the left neighbour's final
+    value's and the right neighbour's where their indices are in range
+    (4 B each). Operations: the Sobel's 20 a pixel of the interior, two
+    comparisons a candidate."""
     from adcensus_torch.ops import dda
 
     d_range, h, w = cost.shape
+    edge = dda.edge_detect(disp)
     _, own_ok = dda._rounded_idx(disp, d_range)
     _, right_ok = dda._rounded_idx(disp[:, 1:], d_range)
     _, left_ok = dda._rounded_idx(adjusted[:, :-1], d_range)
     act = (edge & own_ok)[:, 1:-1]
     cells = int(act.sum()) + int((act & left_ok[:, :-1]).sum()) + int(
         (act & right_ok[:, 1:]).sum())
-    args = (disp, cost, edge)
+    run = take_left_run(torch, disp, cost, adjusted)
+    chunks = -(-w // 32)
+    scans, gathers = dda_counts(torch, disp, cost, adjusted)
+    busiest = int((scans + gathers).argmax())
+    args = (disp, cost)
     return (
-        f"{label} ({int(edge.sum())} edge pixels, {int(act.sum())} "
-        f"adjustable, {int((adjusted != disp).sum())} changed)",
+        f"{label} {h}x{w}, D={d_range} ({int(edge.sum())} edge pixels, "
+        f"{int(act.sum())} adjustable, {int((adjusted != disp).sum())} "
+        f"changed; longest run taking the left value {run}; {chunks} "
+        f"chunks a row; {int(scans.sum())} scans and {int(gathers.sum())} "
+        f"gather rounds in all, {int(scans[busiest])} and "
+        f"{int(gathers[busiest])} in the busiest row)",
         lambda: dda.dda(*args), lambda: dda.dda_plain(*args), None,
-        h * w * 9 + cells * 4, 2 * cells,
+        h * w * 8 + cells * 4,
+        max(h - 2, 0) * max(w - 2, 0) * 20 + 2 * cells,
+        (chunks, "chunk", dda_chain(torch, run)),
     )
+
+
+def dda_counts(torch, disp, cost, adjusted):
+    """Each row's scans (one a round: the first round of each chunk with
+    an adjustable pixel, and each round with a gather) and its rounds with
+    a gather in M2's kernel, from ``adc_dda_counts`` (the same kernel,
+    which also writes the counts; its launch is not counted), as two int64
+    tensors on the host; its map must equal ``adjusted``."""
+    import ctypes
+
+    from adcensus_torch.ops import _build
+
+    entry = _build.entry("dda", "adc_dda_counts", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+    d_range, h, w = cost.shape
+    out = torch.empty_like(disp)
+    counts = torch.zeros((h, 2), dtype=torch.int32, device=disp.device)
+    err = entry(disp.data_ptr(), cost.data_ptr(), out.data_ptr(),
+                counts.data_ptr(), d_range, h, w,
+                torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"adc_dda_counts failed: {err}")
+    max_abs_err(torch, out, adjusted)
+    counts = counts.long().cpu()
+    return counts[:, 0], counts[:, 1]
+
+
+def take_left_run(torch, disp, cost, adjusted) -> int:
+    """The longest run along a row of pixels that each take the value on
+    their left, from the plain scan's own rule applied to the adjusted
+    map: an adjustable pixel whose left neighbour's final value is cheaper
+    in the left column than its own, and whose right neighbour does not
+    then undercut it."""
+    import numpy as np
+
+    from adcensus_torch.ops import dda
+
+    d_range = cost.shape[0]
+    if disp.shape[1] < 3:
+        return 0
+    own_i, own_ok = dda._rounded_idx(disp, d_range)
+    act = dda.edge_detect(disp) & own_ok
+    own_c = torch.gather(cost, 0, own_i[None])[0]
+    left_i, left_ok = dda._rounded_idx(adjusted[:, :-2], d_range)
+    left_c = torch.gather(cost[:, :, :-2], 0, left_i[None])[0]
+    c0 = own_c[:, 1:-1]
+    take_l = act[:, 1:-1] & left_ok & (left_c < c0)
+    c = torch.where(take_l, left_c, c0)
+    _, right_ok = dda._rounded_idx(disp[:, 2:], d_range)
+    take_r = right_ok & (own_c[:, 2:] < c)
+    chain = (take_l & ~take_r).cpu().numpy().astype(np.int8)
+    edges = np.diff(np.pad(chain, ((0, 0), (1, 1))), axis=1)
+    starts, ends = np.nonzero(edges == 1)[1], np.nonzero(edges == -1)[1]
+    return int((ends - starts).max()) if len(starts) else 0
+
+
+def dda_chain(torch, run, steps=4096):
+    """M2's chain bound: ``run`` chained steps, each an L2 gather at a
+    carried index, a compare, a select and an lround, timed by
+    ``adc_dda_chain_cycles`` in clock64 cycles on one warp, over the
+    card's top SM clock (``nvidia-smi`` clocks.max.sm). Returns ("chain",
+    bound ms, cycles a step, the step's name, MHz)."""
+    import ctypes
+
+    from adcensus_torch.ops import _build
+
+    probe = _build.entry("dda", "adc_dda_chain_cycles", (
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p))
+    d_range, stride = 64, 4096
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    table = torch.randint(0, d_range, (d_range, stride), generator=gen,
+                          device="cuda").float()
+    cycles = torch.zeros(1, dtype=torch.int64, device="cuda")
+    sink = torch.empty(32, device="cuda")
+    for _ in range(2):  # the second run, warm
+        err = probe(cycles.data_ptr(), table.data_ptr(), d_range, stride,
+                    steps, sink.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"adc_dda_chain_cycles failed: {err}")
+    per_step = int(cycles.item()) / steps
+    mhz = sm_clock_mhz()
+    return ("chain", run * per_step / (mhz * 1e3), per_step, "chained step",
+            mhz)
+
+
+def dda_extra_cases(torch, dev):
+    """M2 beside the JSON's case: at the Wood2 size (555x653, D = 128) on
+    a seeded map of disparities in [0, 128) with 15 % +inf and a uniform
+    cost, and at the Cone size on horizontal stripes 6 rows high of
+    disparities 12 and 40 with halves and whole steps of jitter, whose
+    boundary rows are edges along the whole row, under a cost that rises
+    with the index (d / D plus 1 % noise), so that low values propagate
+    along them."""
+    import numpy as np
+
+    from adcensus_torch.ops import dda
+
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cases = []
+    h, w, d_range = WOOD2[0], WOOD2[1], WOOD2[5]
+    src = rng.uniform(0.0, d_range, (h, w)).astype(np.float32)
+    src[rng.random((h, w)) < 0.15] = np.inf
+    disp = torch.as_tensor(src, device=dev)
+    cost = torch.rand((d_range, h, w), generator=gen, device=dev)
+    cases.append(dda_case(torch, "random map", disp, cost,
+                          dda.dda(disp, cost)))
+    stripes = np.where((np.arange(H) // 6) % 2, 40.0, 12.0)[:, None]
+    src = (stripes + rng.choice([0.0, 0.5, 1.0], (H, W))).astype(np.float32)
+    disp = torch.as_tensor(src, device=dev)
+    rise = torch.arange(MAX_D, device=dev, dtype=torch.float32) / MAX_D
+    cost = rise[:, None, None] + 0.01 * torch.rand(
+        (MAX_D, H, W), generator=gen, device=dev)
+    cases.append(dda_case(torch, "striped map", disp, cost,
+                          dda.dda(disp, cost)))
+    return cases
 
 
 def median_case(torch, label, disp):
@@ -392,13 +528,15 @@ def median_case(torch, label, disp):
     threads, rows, _ = median.median_inplace_geometry(h, w)
     _, _, last = median.median_inplace_schedule(h, w)
     walk = last + median.TAIL - median.FIRST_STEP + 1
+    rec_ms, per_step, mhz = median_recurrence(torch, threads, waves)
     return (
         f"{label} {h}x{w} ({waves} wavefronts; {threads} threads, {rows} "
         f"row(s) a thread, a walk of {walk} steps)",
         lambda: median.median_inplace(disp),
         lambda: median.median_inplace_plain(disp), None,
         h * w * 8, h * w * SORT_OPS,
-        (waves, "wavefront", median_recurrence(torch, threads, waves)),
+        (waves, "wavefront",
+         ("recurrence", rec_ms, per_step, "wavefront", mhz)),
     )
 
 
@@ -714,13 +852,13 @@ def measure_case(torch, name, case):
         l_ms = time_ms(torch, library)
         lib_note = f", library {l_ms:.4f} ms (max |diff| {lib_err:.3g})"
     if steps:  # a recurrence's latency a step, against its bound
-        (n_steps, unit, recurrence), = steps
+        (n_steps, unit, chain), = steps
         lib_note += f", {k_ms * 1e6 / n_steps:.1f} ns per {unit}"
-        if recurrence is not None:
-            rec_ms, per_step, mhz = recurrence
-            which = "recurrence" if rec_ms > b_ms else "bytes"
-            lib_note += (f", recurrence bound {rec_ms:.4f} ms ({per_step:.1f}"
-                         f" cycles a {unit} at {mhz:.0f} MHz; {which} "
+        if chain is not None:
+            kind, rec_ms, per_step, step, mhz = chain
+            which = kind if rec_ms > b_ms else b_kind
+            lib_note += (f", {kind} bound {rec_ms:.4f} ms ({per_step:.1f} "
+                         f"cycles a {step} at {mhz:.0f} MHz; {which} "
                          "bounds it)")
     print(f"[kernel] {name} {label}: {k_ms:.4f} ms, plain {p_ms:.4f} ms"
           f"{lib_note}, bound {b_ms:.4f} ms ({b_kind}, "
@@ -890,6 +1028,8 @@ def main() -> int:
             measure_case(torch, name, case)
     for case in median_extra_cases(torch, dev):
         measure_case(torch, "median_inplace", case)
+    for case in dda_extra_cases(torch, dev):
+        measure_case(torch, "dda", case)
     for hf, ms, err in dense_matmul_note(torch, inter, opts):
         print(f"[note] dense cross_pass_matmul, "
               f"{'horizontal' if hf else 'vertical'}-first: {ms:.4f} ms "
@@ -1368,23 +1508,26 @@ def device_profile(torch, fn, top_n: int = 12):
     ``top_n`` kernels by total device time as (name, ms, calls),
     {kernel: (ms, calls)} summed for each hand-written kernel of KERNELS,
     in or out of the top, and the profiled call's host-clock ms; None
-    when the profiler sees no device."""
+    when the profiler sees no device in PROFILE_TRIES calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        call_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
-    if not spans:
+    for _ in range(PROFILE_TRIES):  # the profiler at times records nothing
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            call_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted(
+            (e.time_range.start, e.time_range.end, e.name)
+            for e in prof.events() if e.device_type == DeviceType.CUDA
+        )
+        if spans:
+            break
+    else:
         return None
     busy_us, end = 0.0, float("-inf")
     per_name = {}

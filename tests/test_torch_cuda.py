@@ -18,7 +18,9 @@ adjustment) cover one-pixel-wide and -high maps, the Cone, Wood2 and
 1100x64 sizes (more rows than a block has threads), M1 at its design's
 boundaries (heights of 32k +- 1, two and three bands of rows, widths
 below a refill's chunk, bands wider than the block's lead, rows all
-+inf, the height limit), maps all +inf,
++inf, the height limit), M2 at its design's boundaries (widths of 32k
++- 1, runs of edge pixels across chunks whose value propagates or
+changes at every pixel), maps all +inf,
 disparities whose cost index falls outside [0, D), the Cone-size pair's
 own refinement maps, both stages under sync debug mode "error", the match
 with both flags and a batched graph with both flags. The sharded layer
@@ -629,18 +631,69 @@ def _dda_inputs(dev, h, w, min_disparity, seed, d_range=16):
             torch.as_tensor(cost, device=dev), opts)
 
 
+# M2's design boundaries: widths of 32k +- 1 (a chunk's edge column from
+# the chunk before or the extra load), a row of one chunk and of three
+DDA_SHAPES = {**FLAG_SHAPES, "9x31": (9, 31), "9x32": (9, 32),
+              "9x33": (9, 33), "9x65": (9, 65), "40x97": (40, 97)}
+
+
 @pytest.mark.parametrize("min_disparity", [-4, 3])
-@pytest.mark.parametrize("shape", sorted(FLAG_SHAPES))
+@pytest.mark.parametrize("shape", sorted(DDA_SHAPES))
 def test_dda_bitwise(dev, shape, min_disparity):
-    """M2, one launch, against its plain version on the Sobel mask."""
-    h, w = FLAG_SHAPES[shape]
+    """M2, one launch with its Sobel mask, against its plain version."""
+    h, w = DDA_SHAPES[shape]
     disp, cost, opts = _dda_inputs(dev, h, w, min_disparity, seed=h * w)
     _build.reset_launches()
     out = refine.depth_discontinuity_adjustment(disp, cost, opts)
     assert _build.launches["dda"] == 1
-    _assert_bitwise(out, dda.dda_plain(disp, cost, refine.edge_detect(disp)))
+    _assert_bitwise(out, dda.dda_plain(disp, cost))
     if h > 2 and w > 2:
         assert not torch.equal(out, disp)
+
+
+def _dda_run_case(dev, w, kind):
+    """Row 2 an edge along its whole interior (rows 1 and 3 far apart),
+    and the outputs expected at its columns 1 to W - 2. Propagating:
+    column 0's value is the cheapest everywhere, so it runs to column
+    W - 2 across every chunk boundary. Changing: own costs fall rightward,
+    so each pixel takes its right neighbour's value. Alternating: even
+    columns keep their value and odd ones take it, so every other lane
+    starts a round with a gather."""
+    h = 5
+    x = np.arange(w)
+    disp = np.zeros((h, w), np.float32)
+    disp[3] = 100.0
+    cost = np.full((128, h, w), 0.9, np.float32)
+    if kind == "propagating":
+        disp[2] = np.where(x % 2, 4.0, 5.0)
+        disp[2, 0] = 2.0
+        cost[2, 2] = 0.25
+        expect = np.full(w - 2, 2.0, np.float32)
+    else:
+        disp[2] = x % 100 + 1
+        for c in x:
+            own = (0.7 if c % 2 else 0.5) if kind == "alternating" else (
+                0.5 - 0.001 * c)
+            cost[int(disp[2, c]), 2, c] = np.float32(own)
+            if c and kind == "changing":
+                cost[int(disp[2, c]), 2, c - 1] = np.float32(0.8)
+        inner = x[1:-1]
+        expect = disp[2, inner + 1] if kind == "changing" else disp[
+            2, inner - inner % 2]
+    return (torch.as_tensor(disp, device=dev),
+            torch.as_tensor(cost, device=dev),
+            torch.as_tensor(expect, device=dev))
+
+
+@pytest.mark.parametrize("w", [70, 100, 1000])
+@pytest.mark.parametrize("kind", ["propagating", "changing", "alternating"])
+def test_dda_long_runs(dev, w, kind):
+    """A run across many chunks whose value propagates, one whose value
+    changes at every pixel, and the rounds' worst case."""
+    disp, cost, expect = _dda_run_case(dev, w, kind)
+    out = dda.dda(disp, cost)
+    _assert_bitwise(out, dda.dda_plain(disp, cost))
+    _assert_bitwise(out[2, 1:-1].contiguous(), expect)
 
 
 def test_flag_stages_on_cone_maps(dev):
@@ -655,8 +708,7 @@ def test_flag_stages_on_cone_maps(dev):
     )
     disp, cost = inter["after_interpolation"], inter["cost_scan"]
     adjusted = refine.depth_discontinuity_adjustment(disp, cost, opts)
-    _assert_bitwise(adjusted, dda.dda_plain(disp, cost,
-                                            refine.edge_detect(disp)))
+    _assert_bitwise(adjusted, dda.dda_plain(disp, cost))
     assert not torch.equal(adjusted, disp)
     _assert_bitwise(median.median_inplace(adjusted),
                     median.median_inplace_plain(adjusted))

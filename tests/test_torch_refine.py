@@ -1,8 +1,9 @@
 """The port's refinement (adcensus_torch/stages/refine.py and the plain
 versions of kernels B3, ops/region_vote.py, B4, ops/interp.py, M1,
 ops/median.py, and M2, ops/dda.py) against the JAX package and the numpy
-oracle, on the CPU, from JAX-produced inputs; and line-by-line emulations
-of kernels M1 and M2 against their plain versions."""
+oracle, on the CPU, from JAX-produced inputs; and a line-by-line
+emulation of kernel M1 against its plain version (M2's is in
+tests/test_torch_dda_geometry.py)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -492,53 +493,13 @@ def test_dda_exact(case):
     assert not np.array_equal(ours, disp)
 
 
-def _dda_kernel_emulation(disp, cost, edge):
-    """csrc/dda.cu, row by row: each row scans x carrying column x-1's
-    final value and its index, and gathers the left cost only where a
-    pixel is adjusted."""
-    d_range, h, w = cost.shape
-
-    def index_of(v):
-        if not np.isfinite(v):
-            return None
-        half = np.float32(0.5)
-        i = int(np.floor(v + half) if v >= 0 else np.ceil(v - half))
-        return i if 0 <= i < d_range else None
-
-    out = np.empty_like(disp)
-    for y in range(h):
-        prev_d, prev_i = None, None
-        for x in range(w):
-            d = disp[y, x]
-            di = index_of(d)
-            out_d = d
-            if di is not None and 1 <= x <= w - 2 and edge[y, x]:
-                c0 = cost[di, y, x]
-                if prev_i is not None and cost[prev_i, y, x - 1] < c0:
-                    out_d, c0 = prev_d, cost[prev_i, y, x - 1]
-                ri = index_of(disp[y, x + 1])
-                if ri is not None and cost[ri, y, x + 1] < c0:
-                    out_d = disp[y, x + 1]
-            out[y, x] = out_d
-            prev_d, prev_i = out_d, index_of(out_d)
-    return out
-
-
-@pytest.mark.parametrize("case", DDA_CASES)
-def test_dda_kernel_emulation_equals_plain(case):
-    disp, cost, _ = _dda_case(case)
-    edge = torch_refine.edge_detect(_t(disp))
-    np.testing.assert_array_equal(
-        _bits(_dda_kernel_emulation(disp, cost, edge.numpy())),
-        _bits(torch_dda.dda_plain(_t(disp), _t(cost), edge).numpy()))
-
-
 def test_dda_checks_its_inputs():
     disp, cost, _ = _dda_random_case(0)
-    edge = torch_refine.edge_detect(_t(disp))
     with pytest.raises(ValueError):
-        torch_dda.dda(_t(disp), _t(cost[:, :-1]), edge)
+        torch_dda.dda(_t(disp), _t(cost[:, :-1]))
+    with pytest.raises(ValueError):
+        torch_dda.dda(_t(disp[0]), _t(cost))
     with pytest.raises(TypeError):
-        torch_dda.dda(_t(disp), _t(cost), edge.to(torch.uint8))
+        torch_dda.dda(_t(disp), _t(cost).double())
     with pytest.raises(TypeError):
         torch_median.median_inplace(_t(disp).double())
