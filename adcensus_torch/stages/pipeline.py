@@ -11,6 +11,10 @@ CUDA device as one replay of a CUDA graph of ``match_core``
 statically unrolled groups, and on the CPU as an eager loop. Either way
 each output is bitwise that pair's ``match_device``.
 
+Each entry point runs in a span named after it, and each stage of
+``match_core`` in a span of its own (``utils/profiling.py``); they are
+recorded only while ``torch.profiler`` runs.
+
 Every entry point takes ``cross_backend`` ("roll", the default: kernels
 B1/B3, bitwise in the reference's order; or "matmul": band matrices for
 aggregation and voting) and ``agg_impl`` (None: dense band matrices;
@@ -34,6 +38,9 @@ from adcensus_torch.stages import refine as refine_stage
 from adcensus_torch.stages import scanline as scan_stage
 from adcensus_torch.stages import wta as wta_stage
 from adcensus_torch.utils import graphs
+from adcensus_torch.utils.profiling import (
+    AGGREGATION, ARMS, COST, REFINE, SCANLINE, WTA, span, spanned,
+)
 
 
 def match_core(
@@ -49,24 +56,32 @@ def match_core(
     """Full pipeline on (H, W, 3) uint8 RGB tensors; gray images are
     supplied separately so callers can choose the exact-parity host path.
     Returns the JAX package's keys: "disparity", and with
-    ``return_intermediates`` the stage outputs."""
+    ``return_intermediates`` the stage outputs. Each stage runs in a span
+    named from ``profiling.STAGES``."""
     check_cross_options(cross_backend, agg_impl)
-    census_l = cost_stage.census_transform_9x7(gray_l)
-    census_r = cost_stage.census_transform_9x7(gray_r)
-    cost_init = cost_stage.compute_cost_volume(
-        left, right, census_l, census_r, opts
-    )
-    arms = arms_stage.build_arms(left, opts)
-    cost_aggr = agg_stage.aggregate(
-        cost_init, arms, opts, cross_backend=cross_backend, agg_impl=agg_impl
-    )
-    cost_scan = scan_stage.scanline_optimize(cost_aggr, left, right, opts)
-    disp_left = wta_stage.wta_left(cost_scan, opts)
-    disp_right = wta_stage.wta_right(cost_scan, opts)
-    refined = refine_stage.multistep_refine(
-        disp_left, disp_right, left, cost_scan, arms, opts,
-        cross_backend=cross_backend,
-    )
+    with span(COST):
+        census_l = cost_stage.census_transform_9x7(gray_l)
+        census_r = cost_stage.census_transform_9x7(gray_r)
+        cost_init = cost_stage.compute_cost_volume(
+            left, right, census_l, census_r, opts
+        )
+    with span(ARMS):
+        arms = arms_stage.build_arms(left, opts)
+    with span(AGGREGATION):
+        cost_aggr = agg_stage.aggregate(
+            cost_init, arms, opts, cross_backend=cross_backend,
+            agg_impl=agg_impl
+        )
+    with span(SCANLINE):
+        cost_scan = scan_stage.scanline_optimize(cost_aggr, left, right, opts)
+    with span(WTA):
+        disp_left = wta_stage.wta_left(cost_scan, opts)
+        disp_right = wta_stage.wta_right(cost_scan, opts)
+    with span(REFINE):
+        refined = refine_stage.multistep_refine(
+            disp_left, disp_right, left, cost_scan, arms, opts,
+            cross_backend=cross_backend,
+        )
     out = {"disparity": refined["final"]}
     if return_intermediates:
         out.update(
@@ -81,6 +96,7 @@ def match_core(
     return out
 
 
+@spanned
 def match_device(
     left,
     right,
@@ -95,8 +111,9 @@ def match_device(
     raises, and only ``device="cpu"`` runs on the host."""
     opts = opts or ADCensusOptions()
     dev = resolve_device(device)
-    left = torch.as_tensor(left, device=dev)
-    right = torch.as_tensor(right, device=dev)
+    with span("entry.h2d"):
+        left = torch.as_tensor(left, device=dev)
+        right = torch.as_tensor(right, device=dev)
     validate_inputs(left, right, opts)
     gray_l = cost_stage.compute_gray(left)
     gray_r = cost_stage.compute_gray(right)
@@ -129,6 +146,7 @@ def validate_inputs(left, right, opts: ADCensusOptions) -> None:
     opts.validate()
 
 
+@spanned
 def match(
     left: np.ndarray,
     right: np.ndarray,
@@ -153,17 +171,22 @@ def match(
     if gray_mode not in ("device", "host64"):
         raise ValueError(f"unknown gray_mode {gray_mode!r}")
     dev = resolve_device(device)
-    left_t = torch.as_tensor(left, device=dev)
-    right_t = torch.as_tensor(right, device=dev)
+    host = [left, right]
     if gray_mode == "host64":
-        gray_l = torch.as_tensor(cost_stage.compute_gray_host64(left), device=dev)
-        gray_r = torch.as_tensor(cost_stage.compute_gray_host64(right), device=dev)
+        host += [cost_stage.compute_gray_host64(left),
+                 cost_stage.compute_gray_host64(right)]
+    with span("entry.h2d"):
+        left_t, right_t, *grays = [torch.as_tensor(a, device=dev)
+                                   for a in host]
+    if grays:
+        gray_l, gray_r = grays
     else:
         gray_l = cost_stage.compute_gray(left_t)
         gray_r = cost_stage.compute_gray(right_t)
     res = match_core(left_t, right_t, gray_l, gray_r, opts,
                      return_intermediates, cross_backend, agg_impl)
-    return {k: v.cpu().numpy() for k, v in res.items()}
+    with span("entry.d2h"):
+        return {k: v.cpu().numpy() for k, v in res.items()}
 
 
 # Bytes a pair of a group holds. JAX's rule is 6 (D, H, W) float32
@@ -224,6 +247,7 @@ def _batch_group_size(b: int, h: int, w: int, opts: ADCensusOptions,
     return g
 
 
+@spanned
 def match_batched_device(
     lefts,
     rights,
@@ -242,6 +266,7 @@ def match_batched_device(
                          cross_backend, agg_impl)
 
 
+@spanned
 def match_batched(
     lefts,
     rights,
@@ -258,6 +283,7 @@ def match_batched(
                          None, cross_backend, agg_impl)
 
 
+@spanned
 def match_hetero_device(
     pairs: Sequence,
     opts_seq: Sequence[ADCensusOptions],
@@ -281,8 +307,9 @@ def match_hetero_device(
     for (left, right), opts in zip(pairs, opts_seq):
         validate_inputs(left, right, opts)
     dev = resolve_device(device)
-    pairs = tuple((torch.as_tensor(l, device=dev),
-                   torch.as_tensor(r, device=dev)) for l, r in pairs)
+    with span("entry.h2d"):
+        pairs = tuple((torch.as_tensor(l, device=dev),
+                       torch.as_tensor(r, device=dev)) for l, r in pairs)
 
     def run(i, inputs):
         left, right = inputs[i]
@@ -332,10 +359,13 @@ def _match_stacks(stacks, opts, device, group, cross_backend, agg_impl,
         raise ValueError(f"group {group} must divide the batch of {b}")
     dev = resolve_device(device)
     if group is None:
-        g = _batch_group_size(b, h, w, opts, dev, cross_backend=cross_backend)
+        with span("entry.group_rule"):
+            g = _batch_group_size(b, h, w, opts, dev,
+                                  cross_backend=cross_backend)
     else:
         g = group
-    stacks = tuple(torch.as_tensor(s, device=dev) for s in stacks)
+    with span("entry.h2d"):
+        stacks = tuple(torch.as_tensor(s, device=dev) for s in stacks)
 
     def run(i, inputs):
         left, right = inputs[0][i], inputs[1][i]
@@ -364,10 +394,11 @@ def _match_stacks(stacks, opts, device, group, cross_backend, agg_impl,
     )
     out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     for k in range(0, b, g):
-        for buf, s in zip(entry.inputs, stacks):
-            buf.copy_(s[k:k + g])
-        entry.graph.replay()
-        out[k:k + g].copy_(entry.outputs)
+        with span("entry.replay"):
+            for buf, s in zip(entry.inputs, stacks):
+                buf.copy_(s[k:k + g])
+            entry.graph.replay()
+            out[k:k + g].copy_(entry.outputs)
     return out
 
 

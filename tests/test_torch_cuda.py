@@ -943,6 +943,43 @@ def test_batched_graph_equals_match_device(dev, path, group):
         _assert_bitwise(out[i], singles[i])
 
 
+@pytest.mark.parametrize("group", [None, 2])
+def test_batched_spans_a_replay_a_group(dev, group):
+    """Under a profiler, a batched call records its root, the group rule
+    (unless a group is given), the stacks' copy in, and one entry.replay
+    a group; the first call's eager warm-up records its stages, the
+    capture none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from adcensus_torch.utils import graphs, profiling
+
+    lefts, rights = _stacks(dev, 4)
+    lefts, rights = lefts.cpu().numpy(), rights.cpu().numpy()
+    opts = ADCensusOptions(max_disparity=16)
+    graphs.clear()
+    profiling.clear()
+    calls = []
+    with profile(activities=[ProfilerActivity.CUDA]):
+        for _ in range(2):
+            out = pipeline.match_batched_device(lefts, rights, opts,
+                                                device=dev, group=group)
+            calls.append(profiling.spans())
+            profiling.clear()
+    g = int(graphs.cached()[-1].outputs.shape[0])
+    rule = ["entry.group_rule"] if group is None else []
+    for k, spans in enumerate(calls):
+        (root,) = [s for s in spans if s.parent is None]
+        assert root.name == "match_batched_device"
+        assert {s.request for s in spans} == {root.request}
+        warm = list(profiling.STAGES) if k == 0 else []
+        assert [s.name for s in sorted(spans, key=lambda s: s.start_ns)
+                if s.parent == root.id] == (
+            rule + ["entry.h2d"] + warm + ["entry.replay"] * (4 // g))
+    want = pipeline.match_batched_device(lefts, rights, opts, device=dev,
+                                         group=group)
+    _assert_bitwise(out, want)
+
+
 def test_hetero_graph_equals_per_pair(dev):
     """Pairs of two shapes and disparity ranges in one graph, bitwise
     equal to ``match_device`` on each."""
