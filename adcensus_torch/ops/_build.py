@@ -1,6 +1,6 @@
 """Build and bind the CUDA kernels of ``adcensus_torch/csrc``.
 
-Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
+Each ``csrc/<source>.cu`` compiles with ``nvcc`` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), under ``build/adcensus_torch/`` at the repository root, on
 first use. Libraries are keyed by a hash of their sources and flags, so
@@ -44,7 +44,12 @@ SIGNATURES = {
     "band_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "median_inplace": (_P, _P, _I, _I, _P),
     "dda": (_P, _P, _P, _I, _I, _I, _P),
+    "census": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "cost_volume": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _P),
 }
+# kernel name -> its source csrc/<source>.cu, where that is not the name
+SOURCES = {"census": "cost", "cost_volume": "cost"}
 
 # Kernel launches since the last reset, by kernel name. Only launch()
 # adds to it; the plain versions never do.
@@ -72,11 +77,16 @@ def _nvcc() -> str:
     return found
 
 
+def _source(name: str) -> str:
+    return SOURCES.get(name, name)
+
+
 def _library(name: str) -> Path:
+    src = _source(name)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    for path in (CSRC / f"{src}.cu", CSRC / "common.cuh"):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{src}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict:
@@ -89,20 +99,20 @@ def build(names=None) -> dict:
         return {n: _entries[n] for n in names}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in todo:
-        lib = _library(name)
+    for src in dict.fromkeys(_source(n) for n in todo):
+        lib = _library(src)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs.append((name, tmp, lib, subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{src}.cu")]
+        procs.append((src, tmp, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
     errors = []
-    for name, tmp, lib, proc in procs:
+    for src, tmp, lib, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            errors.append(f"{src}.cu: nvcc exited {proc.returncode}\n{log}")
         else:
             os.replace(tmp, lib)
     if errors:

@@ -4,6 +4,11 @@ Port of ``adcensus_tpu/stages/cost.py`` (reference: cost_computor.cpp:58-137,
 adcensus_util.cpp:10-53). The 63-bit census signature is packed into one
 int64 per pixel (bit 63 stays 0, so the value is never negative); the
 Hamming distance is a SWAR popcount on int64.
+
+``census_transform_9x7`` and ``compute_cost_planes`` launch kernels C1
+and C2 (``ops/cost.py``, ``csrc/cost.cu``) for CUDA tensors and run their
+plain versions, ``census_transform_9x7_plain`` and
+``compute_cost_planes_plain``, for CPU tensors.
 """
 from __future__ import annotations
 
@@ -11,7 +16,8 @@ import numpy as np
 import torch
 
 from adcensus_torch.config import ADCensusOptions
-from adcensus_torch.ops.basic import f32, shift2d
+from adcensus_torch.ops import cost as cost_ops
+from adcensus_torch.ops.basic import f32, kernels_for, shift2d
 
 # 9x7 census window offsets in reference bit order: row -4..4 outer,
 # col -3..3 inner, MSB first (adcensus_util.cpp:25-32). Bit k (0 = first
@@ -56,6 +62,16 @@ def census_transform_9x7(
     h, w = gray.shape
     full_h = h if full_h is None else full_h
     full_w = w if full_w is None else full_w
+    if kernels_for(gray):
+        return cost_ops.census(gray, row_offset, full_h, full_w)
+    return census_transform_9x7_plain(gray, row_offset, full_h, full_w)
+
+
+def census_transform_9x7_plain(gray: torch.Tensor, row_offset: int,
+                               full_h: int, full_w: int) -> torch.Tensor:
+    """Plain version of kernel C1: one shifted comparison a window
+    offset; neighbours outside the array read 0."""
+    h, w = gray.shape
     sig = torch.zeros((h, w), dtype=torch.int64, device=gray.device)
     if not (full_w > 9 and full_h > 7):
         return sig
@@ -134,9 +150,60 @@ def compute_cost_planes(
     when the images are padded on the right (the sharded pipeline):
     columns xr at or beyond it are out of the image. None is the
     images' width."""
+    rw = left.shape[1] if real_w is None else real_w
+    if not kernels_for(left):
+        return compute_cost_planes_plain(left, right, census_l, census_r,
+                                         opts, d0, d_count, rw)
+    ad_table, cen_table = cost_tables(opts, left.device)
+    return cost_ops.cost_volume(left, right, census_l, census_r, ad_table,
+                                cen_table, d0 + opts.min_disparity, d_count,
+                                rw)
+
+
+def ad_term(ad: torch.Tensor, lam_ad: float) -> torch.Tensor:
+    """The part of a cost that depends on the AD term alone, 2 -
+    exp(-ad / lam_ad), in the plain version's order of operations."""
+    return 1.0 - torch.exp(-ad / lam_ad) + 1.0
+
+
+def census_term(cen: torch.Tensor, lam_cen: float) -> torch.Tensor:
+    """The part that depends on the Hamming distance alone; a cost is
+    ``ad_term(...) - census_term(...)``."""
+    return torch.exp(-cen / lam_cen)
+
+
+def cost_tables(opts: ADCensusOptions, device) -> tuple:
+    """Kernel C2's tables, built on ``device`` with the plain version's
+    operations: ``ad_term`` of every AD sum k in 0..765 (k / 3 in
+    float32) and ``census_term`` of every Hamming distance in 0..63. A
+    cost is then one float32 subtraction of two entries, as the plain
+    version's last operation. Built per call: eleven small launches,
+    which a CUDA graph captures."""
+    # float32 holds these integers exactly, as the plain version's int32
+    # sums converted
+    ad = torch.arange(cost_ops.AD_VALUES, dtype=torch.float32,
+                      device=device) / 3.0
+    cen = torch.arange(cost_ops.CEN_VALUES, dtype=torch.float32,
+                       device=device)
+    return (ad_term(ad, float(opts.lambda_ad)),
+            census_term(cen, float(opts.lambda_census)))
+
+
+def compute_cost_planes_plain(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    census_l: torch.Tensor,
+    census_r: torch.Tensor,
+    opts: ADCensusOptions,
+    d0: int,
+    d_count: int,
+    rw: int,
+) -> torch.Tensor:
+    """Plain version of kernel C2: the right image and census gathered
+    for all planes at once, columns xr at or beyond ``rw`` out of the
+    image."""
     h, w, _ = left.shape
     dev = left.device
-    rw = w if real_w is None else real_w
     d_abs = torch.arange(d0, d0 + d_count, device=dev) + opts.min_disparity
     xr = torch.arange(w, device=dev)[None, :] - d_abs[:, None]  # (D, W)
     oob = (xr < 0) | (xr >= rw)
@@ -148,9 +215,8 @@ def compute_cost_planes(
     cen = hamming63(census_l[None], census_r[:, xc].permute(1, 0, 2)).to(
         torch.float32
     )
-    lam_ad = float(opts.lambda_ad)
-    lam_cen = float(opts.lambda_census)
-    cost = 1.0 - torch.exp(-ad / lam_ad) + 1.0 - torch.exp(-cen / lam_cen)
+    cost = (ad_term(ad, float(opts.lambda_ad))
+            - census_term(cen, float(opts.lambda_census)))
     # the kernels take a contiguous (D, H, W) volume; the epipolar gather
     # above may leave another memory layout
     return torch.where(oob[:, None, :], 1.0, cost).contiguous()

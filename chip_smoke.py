@@ -7,7 +7,7 @@ CUDA card, ``nvidia-smi`` and ``nvcc`` (the kernels are built from
 imports nothing of JAX. Phases, each raising on failure:
 
 1. device: the card's name and power limit;
-2. build: the seven CUDA kernels, timed;
+2. build: the nine CUDA kernels (eight libraries), timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the path that runs it and on that path's own inputs,
    bitwise, timed with CUDA events over runs of back-to-back calls
@@ -32,7 +32,10 @@ imports nothing of JAX. Phases, each raising on failure:
    their left times the cycles of a chained gather, timed by a probe)
    beside the bytes bound; M1 also at the Wood2 size and on 1100x64
    (more rows than a block has threads), M2 also at the Wood2 size on a
-   random map and on a striped map whose edges run along whole rows;
+   random map and on a striped map whose edges run along whole rows; C1
+   (census) on the pair's two grays and C2 (the cost volume) on its images
+   and census, as every path runs them, and both also at the KITTI size
+   (375x1242, D = 256) on seeded random images;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
    backend), with the launch counts of one match, the match time, bitwise
@@ -108,6 +111,7 @@ BAD2_LIMIT_PCT = 10.0
 BATCH = 8                          # [batched]: pairs of seeds 0 .. BATCH-1
 HALF_GROUP = 4                     # [batched]: the group of two replays
 WOOD2 = (555, 653, 32, 64, 8, 128)  # [hetero]: H, W, d_bg, d_fg, seed, D
+KITTI = (375, 1242, 256)  # C1 and C2 beside the JSON's case: H, W, D
 # [flags]: the two flag-gated refinement stages, on the roll backend
 FLAGS = dict(exact_median=True, do_discontinuity_adjustment=True)
 MEDIAN_EXTRA = ((555, 653), (1100, 64))  # M1 beside the JSON's case
@@ -146,25 +150,35 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
                        "median_inplace_kernel"),
     "dda": ("adcensus_torch/csrc/dda.cu",
             "adcensus_tpu/stages/refine.py:525", "flags", "dda_kernel"),
+    # C1 and C2 replace jnp functions, not Pallas kernels
+    "census": ("adcensus_torch/csrc/cost.cu",
+               "adcensus_tpu/stages/cost.py:52", "main", "census_kernel"),
+    "cost_volume": ("adcensus_torch/csrc/cost.cu",
+                    "adcensus_tpu/stages/cost.py:153", "main",
+                    "cost_volume_kernel"),
 }
 
 # path -> (cross_backend, agg_impl, launches one match must show: a count,
-# or None for at least one); [flags] runs with FLAGS set
+# or None for at least one); [flags] runs with FLAGS set. Every path runs
+# C1 on both grays and C2 once.
+COST_LAUNCHES = {"census": 2, "cost_volume": 1}
 PATHS = {
     "main": ("roll", None, {"cross_sum": None, "scanline": None,
                             "region_vote": 10, "ray_interp": 2,
-                            "band_mm": 0, "median_inplace": 0, "dda": 0}),
+                            "band_mm": 0, "median_inplace": 0, "dda": 0,
+                            **COST_LAUNCHES}),
     "matmul": ("matmul", None, {"cross_sum": 0, "region_vote": 0,
                                 "band_mm": 0, "scanline": 4,
                                 "ray_interp": 2, "median_inplace": 0,
-                                "dda": 0}),
+                                "dda": 0, **COST_LAUNCHES}),
     "banded": ("matmul", "banded", {"cross_sum": 0, "region_vote": 0,
                                     "band_mm": 8, "scanline": 4,
                                     "ray_interp": 2, "median_inplace": 0,
-                                    "dda": 0}),
+                                    "dda": 0, **COST_LAUNCHES}),
     "flags": ("roll", None, {"cross_sum": None, "scanline": None,
                              "region_vote": 10, "ray_interp": 2,
-                             "band_mm": 0, "median_inplace": 1, "dda": 1}),
+                             "band_mm": 0, "median_inplace": 1, "dda": 1,
+                             **COST_LAUNCHES}),
 }
 
 
@@ -233,10 +247,11 @@ def plain_versions():
     """Context that routes every kernel wrapper to its plain version, so
     the whole pipeline can run on the card without the kernels."""
     stack = ExitStack()
-    for mod in ("cross_sum", "scanline", "region_vote", "interp", "band_mm",
-                "median", "dda"):
+    for mod in ("ops.cross_sum", "ops.scanline", "ops.region_vote",
+                "ops.interp", "ops.band_mm", "ops.median", "ops.dda",
+                "stages.cost"):
         stack.enter_context(mock.patch(
-            f"adcensus_torch.ops.{mod}.kernels_for", lambda t: False
+            f"adcensus_torch.{mod}.kernels_for", lambda t: False
         ))
     return stack
 
@@ -341,7 +356,75 @@ def kernel_cases(torch, inter, left, opts):
     cases["band_mm"] = band_mm_cases(torch, inter["cost_init"], arms,
                                      max_arm, "")
     cases["dda"], cases["median_inplace"] = flag_cases(torch, inter)
+    cases["census"], cases["cost_volume"] = cost_cases(
+        torch, "", left, inter["right"], opts)
     return cases
+
+
+def cost_cases(torch, label, left, right, opts):
+    """C1's cases (the two grays) and C2's (one volume) on a pair, as
+    match_core runs them. C1's bytes bound: the gray read and the
+    signatures written (9 B a pixel), 63 comparisons a pixel. C2's: both
+    images and both census read (22 B a pixel) and the volume written (4 B
+    an output); 8 operations an output. The label gives C2's columns a
+    thread, threads and blocks."""
+    from adcensus_torch.ops import cost as cost_ops
+    from adcensus_torch.stages import cost
+
+    h, w, _ = left.shape
+    d = opts.disp_range
+    censuses = []
+    for side, img in (("left", left), ("right", right)):
+        gray = cost.compute_gray(img)
+        censuses.append((
+            f"{label}{side} gray {h}x{w}",
+            lambda g=gray: cost.census_transform_9x7(g),
+            lambda g=gray: cost.census_transform_9x7_plain(g, 0, h, w),
+            None, h * w * 9, h * w * 63,
+        ))
+    cen_l, cen_r = (cost.census_transform_9x7(cost.compute_gray(img))
+                    for img in (left, right))
+    args = (left, right, cen_l, cen_r)
+    tables = cost.cost_tables(opts, left.device)
+    v, threads = cost_ops.cost_volume_geometry(w)
+    blocks = -(-w // cost_ops.TILE) * h * -(-d // cost_ops.PLANES)
+    volume = (
+        f"{label}{h}x{w}, D={d} ({v} columns a thread, {threads} threads, "
+        f"{blocks} blocks; its tables built beforehand)",
+        lambda: cost_ops.cost_volume(*args, *tables, opts.min_disparity, d,
+                                     w),
+        lambda: cost.compute_cost_planes_plain(*args, opts, 0, d, w),
+        None, h * w * 22 + d * h * w * 4, d * h * w * 8,
+    )
+    return censuses, [volume]
+
+
+def cost_tables_note(torch, dev, opts):
+    """CUDA-event ms of building C2's two tables (cost_tables), which
+    compute_cost_planes does on every call before C2."""
+    from adcensus_torch.stages import cost
+
+    ms = time_ms(torch, lambda: cost.cost_tables(opts, dev))
+    print(f"[note] C2's tables (cost_tables, 11 small PyTorch launches): "
+          f"{ms:.4f} ms a call, before each C2 launch")
+
+
+def cost_extra_cases(torch, dev):
+    """C1 and C2 beside the JSON's cases: at the KITTI size (KITTI) on
+    seeded random images."""
+    import numpy as np
+
+    from adcensus_torch.config import ADCensusOptions
+
+    h, w, d = KITTI
+    rng = np.random.default_rng(SEED)
+    left, right = (torch.as_tensor(rng.integers(0, 256, (h, w, 3),
+                                                dtype=np.uint8), device=dev)
+                   for _ in range(2))
+    censuses, volumes = cost_cases(torch, "KITTI size, ", left, right,
+                                   ADCensusOptions(max_disparity=d))
+    return [("census", c) for c in censuses] + [
+        ("cost_volume", c) for c in volumes]
 
 
 def flag_cases(torch, inter):
@@ -1030,6 +1113,9 @@ def main() -> int:
         measure_case(torch, "median_inplace", case)
     for case in dda_extra_cases(torch, dev):
         measure_case(torch, "dda", case)
+    for name, case in cost_extra_cases(torch, dev):
+        measure_case(torch, name, case)
+    cost_tables_note(torch, dev, opts)
     for hf, ms, err in dense_matmul_note(torch, inter, opts):
         print(f"[note] dense cross_pass_matmul, "
               f"{'horizontal' if hf else 'vertical'}-first: {ms:.4f} ms "

@@ -26,13 +26,21 @@ own refinement maps, both stages under sync debug mode "error", the match
 with both flags and a batched graph with both flags. The sharded layer
 at world size 1 on NCCL: both layouts, the flags and the matmul backend
 bitwise match_device with its launches, the batched call, no host sync;
-and B1 and B3 on a rank's haloed row slab.
+and B1 and B3 on a rank's haloed row slab. C1's (census) cover random
+grays at the Cone and KITTI sizes, images 9 wide and 7 tall, one pixel,
+and the sharded layer's row slabs; C2's (the cost volume) both
+configurations, a negative min_disparity, the sharded layer's disp blocks
+and padded slabs, odd widths and D beyond W; and match_core's cost_init
+and disparity with both against the plain cost stage, eager and in a
+batched graph.
 
 Needs a CUDA card and nvcc; skips without a card. This file imports no
 JAX, so on the GPU host it runs without the JAX test configuration:
 
     python -m pytest --noconftest -p no:cacheprovider -q -m cuda tests/test_torch_cuda.py
 """
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -1237,3 +1245,160 @@ def test_region_vote_on_haloed_slab(dev):
         for k, p, f in zip(out, plain, full):
             _assert_bitwise(k, p)
             _assert_bitwise(k[own], f[r0 : r0 + rows])
+
+
+# Kernels C1 (census) and C2 (the cost volume)
+
+def _gray(dev, h, w, seed):
+    rng = np.random.default_rng(seed)
+    gray = rng.integers(0, 256, (h, w), dtype=np.uint8)
+    gray[h // 3 : h // 3 + 3, w // 4 : w // 4 + 5] = 128  # ties
+    return torch.as_tensor(gray, device=dev)
+
+
+CENSUS_SHAPES = {"cone": (375, 450), "kitti": (375, 1242), "1x1": (1, 1),
+                 "7x30": (7, 30), "8x30": (8, 30), "20x9": (20, 9),
+                 "20x10": (20, 10), "33x65": (33, 65), "5x300": (5, 300)}
+
+
+@pytest.mark.parametrize("shape", sorted(CENSUS_SHAPES))
+def test_census_bitwise(dev, shape):
+    """C1 on random grays (a flat patch for ties), one launch, bitwise
+    its plain version; all zero for images 9 wide or 7 tall."""
+    h, w = CENSUS_SHAPES[shape]
+    gray = _gray(dev, h, w, h * 1000 + w)
+    _build.reset_launches()
+    out = cost_stage.census_transform_9x7(gray)
+    assert _build.launches["census"] == 1
+    _assert_bitwise(out, cost_stage.census_transform_9x7_plain(gray, 0, h, w))
+    if w <= 9 or h <= 7:
+        assert not out.any()
+
+
+# (row_offset, rows, full_h, full_w) of slabs of a 90x120 gray: the first
+# rank's (4 zero rows of context above, as the sharded layer pads), a
+# middle one, the last one, one reaching into padding rows, and padded
+# columns
+CENSUS_SLABS = [(-4, 38, 90, 120), (26, 38, 90, 120), (56, 38, 90, 120),
+                (66, 28, 90, 120), (10, 20, 90, 112)]
+
+
+@pytest.mark.parametrize("r0,rows,full_h,full_w", CENSUS_SLABS)
+def test_census_row_slabs(dev, r0, rows, full_h, full_w):
+    """C1 in the sharded layer's slab mode: bitwise its plain version on
+    the slab, and the full image's signatures on the rows 4 or more from
+    the slab's edges."""
+    gray = _gray(dev, 90, 120, 5)
+    ctx = torch.cat([torch.zeros_like(gray[:4]), gray,
+                     torch.zeros_like(gray[:4])])[r0 + 4 : r0 + 4 + rows]
+    assert ctx.shape[0] == rows
+    out = cost_stage.census_transform_9x7(ctx, row_offset=r0, full_h=full_h,
+                                          full_w=full_w)
+    _assert_bitwise(out, cost_stage.census_transform_9x7_plain(
+        ctx, r0, full_h, full_w))
+    full = cost_stage.census_transform_9x7(
+        gray[:full_h, :full_w].contiguous())
+    inner = slice(max(4, -r0), rows - 4)
+    rows_full = slice(r0 + inner.start, r0 + inner.stop)
+    _assert_bitwise(out[inner, :full_w], full[rows_full])
+
+
+def _cost_inputs(dev, h, w, seed, pad=0):
+    """A seeded pair (the right image the left moved 3 columns, plus
+    noise) with its census, padded on the right by ``pad`` zero columns
+    as the sharded layer pads."""
+    rng = np.random.default_rng(seed)
+    left = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    right = np.clip(np.roll(left, -3, axis=1).astype(np.int64)
+                    + rng.integers(-8, 9, (h, w, 3)), 0, 255).astype(np.uint8)
+    lt, rt = (torch.as_tensor(x, device=dev) for x in (left, right))
+    cl, cr = (cost_stage.census_transform_9x7(cost_stage.compute_gray(x))
+              for x in (lt, rt))
+    if pad:
+        lt, rt = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (lt, rt))
+        cl, cr = (torch.nn.functional.pad(x, (0, pad)) for x in (cl, cr))
+    return lt, rt, cl, cr
+
+
+# (H, W, min_disparity, max_disparity, d0, d_count, pad): both
+# configurations; a negative min_disparity; the sharded layer's disp
+# blocks (d0, D / n) and padded rows slabs (real_w = W); odd widths and
+# widths of each vector size; D beyond W
+COST_CASES = {
+    "cone": (375, 450, 0, 64, 0, 64, 0),
+    "kitti": (375, 1242, 0, 256, 0, 256, 0),
+    "negative min": (60, 200, -20, 44, 0, 64, 0),
+    "disp block 2 of 4": (60, 200, 0, 64, 16, 16, 0),
+    "disp block 4 of 4, negative min": (60, 200, -8, 56, 48, 16, 0),
+    "rows slab padded": (15, 197, -3, 29, 0, 32, 3),
+    "disp block padded": (60, 197, -5, 59, 32, 32, 3),
+    "odd width": (30, 257, 0, 40, 0, 40, 0),
+    "odd width, two tiles": (20, 517, -7, 33, 0, 40, 0),
+    "width 4k": (30, 260, 0, 70, 0, 70, 0),
+    "width 4k, two tiles": (20, 1028, 0, 70, 0, 70, 0),
+    "D beyond W": (9, 20, -4, 60, 0, 64, 0),
+    "one column": (3, 1, -2, 3, 0, 5, 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COST_CASES))
+def test_cost_volume_bitwise(dev, case):
+    """C2, one launch, bitwise its plain version; out-of-image columns
+    exactly 1.0."""
+    h, w, d_min, d_max, d0, d_count, pad = COST_CASES[case]
+    opts = ADCensusOptions(min_disparity=d_min, max_disparity=d_max)
+    args = (*_cost_inputs(dev, h, w, len(case), pad), opts, d0, d_count)
+    _build.reset_launches()
+    out = cost_stage.compute_cost_planes(*args, real_w=w)
+    assert _build.launches["cost_volume"] == 1
+    _assert_bitwise(out, cost_stage.compute_cost_planes_plain(*args, w))
+    xr = (torch.arange(w + pad, device=dev)[None]
+          - torch.arange(d0 + d_min, d0 + d_min + d_count, device=dev)[:, None])
+    oob = ((xr < 0) | (xr >= w))[:, None, :].expand_as(out)
+    assert (out[oob] == 1.0).all()
+
+
+def _plain_cost():
+    return mock.patch("adcensus_torch.stages.cost.kernels_for",
+                      lambda t: False)
+
+
+@pytest.mark.parametrize("d_min,d_max", [(0, 64), (-6, 26)])
+def test_match_core_cost_kernels_equal_plain_cost(dev, d_min, d_max):
+    """match_core with C1 and C2 gives the plain cost stage's cost_init
+    and disparity bitwise, the other kernels on in both; C1 launches
+    twice and C2 once."""
+    left, right, _ = two_layer_pair(120, 300, 5, 12, seed=4)
+    lt, rt = (torch.as_tensor(x, device=dev) for x in (left, right))
+    opts = ADCensusOptions(min_disparity=d_min, max_disparity=d_max)
+    args = (lt, rt, cost_stage.compute_gray(lt), cost_stage.compute_gray(rt),
+            opts)
+    _build.reset_launches()
+    out = pipeline.match_core(*args, return_intermediates=True)
+    assert (_build.launches["census"], _build.launches["cost_volume"]) == (
+        2, 1)
+    with _plain_cost():
+        _build.reset_launches()
+        plain = pipeline.match_core(*args, return_intermediates=True)
+        assert _build.launches["census"] == _build.launches["cost_volume"] == 0
+    _assert_bitwise(out["cost_init"], plain["cost_init"])
+    _assert_bitwise(out["disparity"], plain["disparity"])
+
+
+def test_batched_graph_cost_kernels_equal_plain_cost(dev):
+    """Inside a match_batched_device graph, C1 and C2 are captured (twice
+    and once a pair) and each output is bitwise match_device with the
+    plain cost stage."""
+    from adcensus_torch.utils import graphs
+
+    lefts, rights = _stacks(dev, 4)
+    opts = ADCensusOptions(min_disparity=-2, max_disparity=30)
+    graphs.clear()
+    out = pipeline.match_batched_device(lefts, rights, opts, device=dev,
+                                        group=2)
+    (entry,) = graphs.cached()
+    assert (entry.launches["census"], entry.launches["cost_volume"]) == (4, 2)
+    with _plain_cost():
+        for i in range(4):
+            _assert_bitwise(out[i], pipeline.match_device(
+                lefts[i], rights[i], opts, device=dev))
