@@ -46,7 +46,7 @@ def main(argv=None) -> int:
         return 2
     cell = harness.Cell.from_spec(harness.load_spec(ROOT), args.workload)
     out = open(args.out, "a") if args.out else None
-    control = harness.control_entry("cuda", torch.bfloat16, cell.options())
+    control = harness.control_entry(cell, "cuda", torch.bfloat16)
     runs = ([("program", s) for s in args.seeds]
             + [("control", s) for s in args.control_seeds])
     for kind, seed in runs:

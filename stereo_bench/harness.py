@@ -13,16 +13,27 @@ or to one metric, is a file found by its name:
   request carries, the pool of distinct pairs, the loop (closed, or open
   at a fixed rate), the warm-up requests and the traced stretch;
 * ``entries/<entry>.py``: ``make(device, opts, **entry_args)`` -> the
-  call a request makes into the program;
+  call a request makes into the program. An entry that owns processes
+  or cards besides the harness's own may also define ``close(call)``,
+  which the harness calls once on every way out of ``run_cell``: after
+  the window and before the reference runs, or when a request raises;
+  and ``peak_bytes(call)``, the peak reserved bytes of each of the
+  cell's cards, read before ``close``. An entry that runs ranks of its
+  own starts them as processes that import the program by module path
+  (``python -m``, or a spawn target in the program's package): the
+  harness loads entry files under made-up module names, from which a
+  ``multiprocessing`` spawn target cannot be pickled;
+* ``reference/<name>.py``: ``match(left, right, opts, device,
+  vol_dtype)``, the plain reference that decides ``correct``, named by
+  the configuration's ``reference`` (default ``adcensus``);
 * ``e2e/<metric>.py`` and ``metrics/<metric>.py``: ``read(window)`` and
   ``read(trace)``, each returning a number or None. A metric named
   ``a.b`` falls back to ``a.py`` when ``a.b.py`` is absent, so one
   reader serves the variants of one quantity.
 
 The program under test is ``adcensus_torch``: the harness imports it
-only inside ``run_cell`` and the entries. The reference that decides
-``correct`` is ``reference/adcensus.py``, which imports nothing of the
-program.
+only inside ``run_cell`` and the entries. No reference imports anything
+of the program.
 """
 from __future__ import annotations
 
@@ -145,6 +156,17 @@ class Cell:
     def scene(self):
         return _load_module(self.bench / "scenes" / f"{self.config['scene']}.py")
 
+    def reference(self):
+        """``reference/<name>.py``, the name the configuration's
+        ``reference`` gives (default ``adcensus``); FileNotFoundError if
+        there is no such file."""
+        path = (self.bench / "reference"
+                / f"{self.config.get('reference', 'adcensus')}.py")
+        if not path.is_file():
+            raise FileNotFoundError(f"configuration {self.config['name']!r}: "
+                                    f"no reference {path}")
+        return _load_module(path)
+
     def options(self) -> dict:
         o = dict(self.config["options"])
         o["min_disparity"] = self.config["min_disparity"]
@@ -258,24 +280,26 @@ class Reservoir:
 # --- program entries ------------------------------------------------------
 
 def load_entry(cell: Cell, device, opts):
-    """The call that a request makes: ``entries/<entry>.py``'s
-    ``make(device, opts, **entry_args)``. It takes the request's pairs
-    as the module's ``INPUTS`` says ("stacks": (B, H, W, 3) arrays of
-    lefts and rights; "pairs": a list of (left, right)) and returns B
-    float32 disparity maps on the host."""
+    """The call that a request makes, whether it takes stacks, and the
+    entry's module, which may hold the hooks ``close`` and
+    ``peak_bytes``. The call is ``entries/<entry>.py``'s ``make(device,
+    opts, **entry_args)``. It takes the request's pairs as the module's
+    ``INPUTS`` says ("stacks": (B, H, W, 3) arrays of lefts and rights;
+    "pairs": a list of (left, right)) and returns B float32 disparity
+    maps on the host."""
     module = _load_module(cell.bench / "entries" / f"{cell.traffic['entry']}.py")
     inputs = getattr(module, "INPUTS", "stacks")
     if inputs not in ("stacks", "pairs"):
         raise ValueError(f"entry {cell.traffic['entry']!r}: INPUTS must be "
                          f"'stacks' or 'pairs', not {inputs!r}")
     call = module.make(device, opts, **cell.traffic.get("entry_args", {}))
-    return call, inputs == "stacks"
+    return call, inputs == "stacks", module
 
 
-def control_entry(device, vol_dtype, options: dict):
-    """The reference in the program's place, in ``vol_dtype``: the
-    benchmark's control. Takes (B, H, W, 3) stacks."""
-    from stereo_bench.reference import adcensus as ref
+def control_entry(cell: Cell, device, vol_dtype):
+    """The cell's reference in the program's place, in ``vol_dtype``:
+    the benchmark's control. Takes (B, H, W, 3) stacks."""
+    ref, options = cell.reference(), cell.options()
 
     def run(lefts, rights):
         return np.stack([ref.match(l, r, options, device, vol_dtype)
@@ -409,8 +433,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     from adcensus_torch.config import ADCensusOptions
     from adcensus_torch.ops import _build
     from adcensus_torch.utils import graphs
-    from stereo_bench.reference import adcensus as ref
 
+    ref = cell.reference()
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     tr = cell.traffic
@@ -419,9 +443,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     requests = Requests(lefts, rights, tr["pairs_per_request"],
                         np.random.default_rng(seed_words(seed, 1 << 21)))
     if entry is None:
-        call, stacked = load_entry(cell, dev, opts)
+        call, stacked, hooks = load_entry(cell, dev, opts)
     else:
-        call, stacked = entry, True
+        call, stacked, hooks = entry, True, None
+    close = getattr(hooks, "close", None)
+    peak_bytes = getattr(hooks, "peak_bytes", None)
     rate = tr.get("rate_hz")
 
     def request(k, inputs=None):
@@ -434,80 +460,92 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         t_done = time.perf_counter()
         return out, outputs_ok(out, shapes), shapes, t_sent, t_done
 
-    n_warm = tr["warmup_requests"] if warmup is None else warmup
-    for k in range(n_warm):
-        request(k)
-    _sync(torch, dev)
-    _build.reset_launches()
-    setup_s = process_age()
-
-    sample = Reservoir(cell.config["check"]["pairs"],
-                       np.random.default_rng(seed_words(seed, 1 << 20)))
-    counts = {"attempted": 0, "failed": 0, "pairs": 0, "work": 0}
-    k = n_warm
-
-    def stretch(stop, latencies, service, made=None):
-        """Requests until ``stop(requests done, seconds since start)``; in
-        an open loop request i of the stretch is due ``i / rate`` s after
-        its start and waits for that, and its latency counts from then.
-        ``made`` holds inputs made beforehand, by request number."""
-        nonlocal k
-        t_first = time.perf_counter()
-        i = 0
-        while True:  # at least one request
-            if rate:
-                due = t_first + i / rate
-                wait = due - time.perf_counter()
-                if wait > 0:
-                    time.sleep(wait)
-            out, ok, shapes, t_sent, t_done = request(
-                k, made.pop(k) if made else None)
-            latencies.append(t_done - (due if rate else t_sent))
-            service.append(t_done - t_sent)
-            counts["attempted"] += len(shapes)
-            if not ok:
-                counts["failed"] += len(shapes)
-            else:
-                counts["pairs"] += len(shapes)
-                counts["work"] += sum(cell.pair_work(s) for s in shapes)
-                for j, g in enumerate(requests.pair_ids(k)):
-                    sample.offer((g, out[j]))
-            k += 1
-            i += 1
-            if stop(i, time.perf_counter() - t_first):
-                return time.perf_counter() - t_first
-
-    latencies, service = [], []
-    trace_data = None
-    if trace:
-        # The same number of requests unprofiled, then profiled: the host's
-        # own time comes from the first, the device's from the second,
-        # whose inputs are made before the profiler starts.
-        n_tr = tr["trace_requests"]
-        stretch(lambda i, _: i >= n_tr, latencies, service)
-        plain_pairs = counts["pairs"]
-        made = {k + i: requests.inputs(k + i, stacked) for i in range(n_tr)}
-        from stereo_bench import trace as trace_mod
-        tracer = trace_mod.Tracer(torch, cuda)
-        tracer.start()
+    # the entry's ranks and cards are released on every way out of
+    # the window, and before the reference runs
+    try:
+        n_warm = tr["warmup_requests"] if warmup is None else warmup
+        for k in range(n_warm):
+            request(k)
         _sync(torch, dev)
-        t0 = time.perf_counter()
-        stretch(lambda i, _: i >= n_tr, [], [], made)
-        _sync(torch, dev)
-        traced_s = time.perf_counter() - t0
-        trace_data = tracer.stop()
-        trace_data.window = traced_s
-        trace_data.pairs = counts["pairs"] - plain_pairs
-        trace_data.plain_s_a_pair = (sum(service) / plain_pairs
-                                     if plain_pairs else 0.0)
-    else:
-        stretch(lambda i, t: t >= seconds, latencies, service)
-    window_s = sum(service)
+        _build.reset_launches()
+        setup_s = process_age()
 
-    # what the process held of the card at its fullest: a graph's pools
-    # stay reserved after its capture, so allocated memory undercounts it
-    memory_peak = int(torch.cuda.max_memory_reserved(dev)) if cuda else 0
-    allocated_peak = int(torch.cuda.max_memory_allocated(dev)) if cuda else 0
+        sample = Reservoir(cell.config["check"]["pairs"],
+                           np.random.default_rng(seed_words(seed, 1 << 20)))
+        counts = {"attempted": 0, "failed": 0, "pairs": 0, "work": 0}
+        k = n_warm
+
+        def stretch(stop, latencies, service, made=None):
+            """Requests until ``stop(requests done, seconds since
+            start)``; in an open loop request i of the stretch is due
+            ``i / rate`` s after its start and waits for that, and its
+            latency counts from then. ``made`` holds inputs made
+            beforehand, by request number."""
+            nonlocal k
+            t_first = time.perf_counter()
+            i = 0
+            while True:  # at least one request
+                if rate:
+                    due = t_first + i / rate
+                    wait = due - time.perf_counter()
+                    if wait > 0:
+                        time.sleep(wait)
+                out, ok, shapes, t_sent, t_done = request(
+                    k, made.pop(k) if made else None)
+                latencies.append(t_done - (due if rate else t_sent))
+                service.append(t_done - t_sent)
+                counts["attempted"] += len(shapes)
+                if not ok:
+                    counts["failed"] += len(shapes)
+                else:
+                    counts["pairs"] += len(shapes)
+                    counts["work"] += sum(cell.pair_work(s) for s in shapes)
+                    for j, g in enumerate(requests.pair_ids(k)):
+                        sample.offer((g, out[j]))
+                k += 1
+                i += 1
+                if stop(i, time.perf_counter() - t_first):
+                    return time.perf_counter() - t_first
+
+        latencies, service = [], []
+        trace_data = None
+        if trace:
+            # The same number of requests unprofiled, then profiled: the
+            # host's own time comes from the first, the device's from the
+            # second, whose inputs are made before the profiler starts.
+            n_tr = tr["trace_requests"]
+            stretch(lambda i, _: i >= n_tr, latencies, service)
+            plain_pairs = counts["pairs"]
+            made = {k + i: requests.inputs(k + i, stacked)
+                    for i in range(n_tr)}
+            from stereo_bench import trace as trace_mod
+            tracer = trace_mod.Tracer(torch, cuda)
+            tracer.start()
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            stretch(lambda i, _: i >= n_tr, [], [], made)
+            _sync(torch, dev)
+            traced_s = time.perf_counter() - t0
+            trace_data = tracer.stop()
+            trace_data.window = traced_s
+            trace_data.pairs = counts["pairs"] - plain_pairs
+            trace_data.plain_s_a_pair = (sum(service) / plain_pairs
+                                         if plain_pairs else 0.0)
+        else:
+            stretch(lambda i, t: t >= seconds, latencies, service)
+        window_s = sum(service)
+
+        # what the process held of the card at its fullest: a graph's
+        # pools stay reserved after its capture, so allocated memory
+        # undercounts it
+        memory_peak = int(torch.cuda.max_memory_reserved(dev)) if cuda else 0
+        allocated_peak = (int(torch.cuda.max_memory_allocated(dev)) if cuda
+                          else 0)
+        by_card = ([int(b) for b in peak_bytes(call)]
+                   if peak_bytes is not None else None)
+    finally:
+        if close is not None:
+            close(call)
     launches = dict(_build.launches)
     group = None
     cached = graphs.cached()
@@ -527,7 +565,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
         + " ".join(f"{np.mean(t) * 1e3:.3f}"
                    for t in np.array_split(latencies, 3) if len(t)))
     log(f"[bench] peak reserved {memory_peak} bytes, peak allocated "
-        f"{allocated_peak} bytes")
+        f"{allocated_peak} bytes"
+        + (f"; peak reserved by card {by_card}" if by_card is not None
+           else ""))
     log(f"[bench] host after the run: {host_state()}; "
         f"{dispatch_us(torch, dev):.3f} us to issue a small op")
 
@@ -564,6 +604,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     else:
         props = {"platform": "cpu", "kind": "cpu", "count": 1}
     props["memory_peak_bytes"] = memory_peak
+    if by_card is not None:
+        props["memory_peak_bytes"] = max([memory_peak, *by_card])
+        props["memory_peak_bytes_by_card"] = by_card
 
     metrics, breakdown = {}, None
     if trace:

@@ -18,6 +18,8 @@ def test_a_sound_run_is_correct(workload):
     assert out.correct, out.checks
     assert out.failed == 0 and out.attempted >= 1
     assert out.checks["mismatch_pct"]["value"] == 0.0
+    # the entries of one card report card 0's peak alone
+    assert "memory_peak_bytes_by_card" not in out.device
     names = set(out.metrics)
     if workload.endswith(".stream"):
         assert names == {"latency_ms", "latency_ms.p95", "setup_s"}
@@ -96,8 +98,8 @@ def test_half_the_batch_left_out_fails(workload, monkeypatch):
 
 @pytest.mark.parametrize("workload", ["cones.stream", "kitti.batch8"])
 def test_the_control_in_bfloat16_fails(workload):
-    control = harness.control_entry("cpu", torch.bfloat16,
-                                    tiny_cell(workload).options())
+    control = harness.control_entry(tiny_cell(workload), "cpu",
+                                    torch.bfloat16)
     out = run_tiny(workload, entry=control)
     assert not out.correct
     assert out.checks["mismatch_pct"]["value"] > 5.0

@@ -1,22 +1,28 @@
 """Cells, configurations, mixes and metrics are found by name from files
 alone; the contract's shape of BENCHMARK.json."""
 import json
+import os
 import re
 import shutil
 
+import numpy as np
 import pytest
+import torch
 
 from conftest import ROOT, tiny_cell, write_json
 from stereo_bench import harness
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
+# The layers of PERF.md's list, from the entry point down to the device;
+# ``shard`` is the sharded layer, adcensus_torch/parallel/.
+LAYERS = {"entry", "shard", "stages", "kernels", "device"}
+STAGES = ("cost", "arms", "aggregation", "scanline", "wta", "refine")
 
 
 def test_every_cell_finds_its_files(spec):
     for w in spec["workloads"]:
         cell = harness.Cell.from_spec(spec, w["name"])
         assert cell.config["name"] == w["config"]
-        assert cell.traffic["entry"] in ("match", "match_batched_device")
         assert (harness.BENCH / "entries" /
                 f"{cell.traffic['entry']}.py").is_file()
         cell.scene()
@@ -39,8 +45,17 @@ def test_cells_report_their_metrics(spec):
     assert {m["name"] for m in batch.e2e} == {"throughput", "setup_s"}
     assert {m["name"] for m in batch.per_layer} == {
         "device.idle_pct.batch", "stages.torch_ms.batch",
-        "kernels.hand_ms.batch"}
-    assert len(stream.per_layer) == 5
+        "kernels.hand_ms.batch", "entry.group_rule.idle_ms.batch",
+        "entry.h2d.idle_ms.batch", "entry.replay.idle_ms.batch"}
+    want = {"device.idle_pct.stream", "entry.host_ms.stream",
+            "stages.torch_ms.stream", "kernels.hand_ms.stream",
+            "kernels.roofline_pct.stream", "entry.idle_ms.stream",
+            "device.syncs.stream"}
+    want |= {f"stages.{s}.{part}.stream" for s in STAGES
+             for part in ("device_ms", "idle_ms")}
+    assert len(want) == 19
+    for cell in (stream, cones):
+        assert {m["name"] for m in cell.per_layer} == want
 
 
 def test_spec_keeps_to_the_contract(spec):
@@ -56,9 +71,12 @@ def test_spec_keeps_to_the_contract(spec):
         assert c["file"].startswith(spec["paths"][0] + "/")
         assert len(c["source"]) <= 200
     for w in spec["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
-    layers = {m["layer"] for m in spec["per_layer"]}
-    assert layers == {"device", "entry", "stages", "kernels"}
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    # at most a quarter of the cells, rounded down, on four chips; one
+    # always may be
+    on_four = sum(w["chips"] == 4 for w in spec["workloads"])
+    assert on_four <= max(1, len(spec["workloads"]) // 4)
+    assert {m["layer"] for m in spec["per_layer"]} <= LAYERS
     e2e = {m["name"]: m for m in spec["end_to_end"]}
     for m in spec["per_layer"]:
         # every cell a per-layer metric lists reports what it moves
@@ -152,6 +170,141 @@ def test_a_new_mix_with_its_own_entry_and_loop_runs(tmp_path, spec):
     assert out.correct, out.checks
     assert out.attempted >= 2 and out.attempted % 2 == 0
     assert set(out.metrics) >= {"setup_s", new["end_to_end"][0]["name"]}
+
+
+# An entry that owns a process, as an entry of several ranks does: it
+# starts a child in make and ends it in close; peak_bytes reports three
+# cards. A request fails where entry_args's fail_at says.
+OWNER_ENTRY = """
+import subprocess
+import sys
+from pathlib import Path
+
+INPUTS = "stacks"
+HERE = Path(__file__).parent
+
+
+def make(device, opts, fail_at=0):
+    from adcensus_torch.stages import pipeline
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import time; time.sleep(600)"])
+    (HERE / "child.pid").write_text(str(child.pid))
+    done = []
+
+    def call(lefts, rights):
+        done.append(1)
+        if len(done) == fail_at:
+            raise RuntimeError("request %d failed" % fail_at)
+        return pipeline.match(lefts[0], rights[0], opts,
+                              device=device)["disparity"][None]
+
+    call.child = child
+    return call
+
+
+def peak_bytes(call):
+    return [5, 7000, 3]
+
+
+def close(call):
+    with open(HERE / "closed", "a") as f:
+        f.write("x")
+    call.child.terminate()
+    call.child.wait(timeout=60)
+"""
+
+
+def _owner_cell(tmp_path, spec, fail_at=0):
+    bench = _copy_bench(tmp_path)
+    (bench / "entries" / "owner.py").write_text(OWNER_ENTRY)
+    write_json(bench / "traffic" / "owner.json", {
+        "entry": "owner", "entry_args": {"fail_at": fail_at},
+        "loop": "closed", "pairs_per_request": 1, "pool_pairs": 2,
+        "warmup_requests": 1, "trace_requests": 1})
+    new = json.loads(json.dumps(spec))
+    new["workloads"].append({"name": "cones.owner",
+                             "config": "middlebury2003-cones",
+                             "traffic": "owner", "chips": 1, "why": "test"})
+    write_json(tmp_path / "BENCHMARK.json", new)
+    cell = harness.Cell.from_spec(harness.load_spec(tmp_path), "cones.owner",
+                                  root=tmp_path, bench=bench)
+    cell.config = tiny_cell("cones.stream").config
+    return cell, bench / "entries"
+
+
+def _ended(entries) -> bool:
+    """The child of the owner entry has exited and been waited for, and
+    close ran once."""
+    pid = int((entries / "child.pid").read_text())
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return (entries / "closed").read_text() == "x"
+    return False
+
+
+def test_an_entry_that_owns_a_process_ends_it_and_reports_each_card(
+        tmp_path, spec):
+    cell, entries = _owner_cell(tmp_path, spec)
+    out = harness.run_cell(cell, seed=2 ** 35 + 1, seconds=0.05, trace=False,
+                           device="cpu", log=lambda *a: None)
+    assert out.correct, out.checks
+    assert _ended(entries)
+    assert out.device["memory_peak_bytes"] == 7000
+    assert out.device["memory_peak_bytes_by_card"] == [5, 7000, 3]
+
+
+def test_an_entry_that_owns_a_process_ends_it_when_a_request_raises(
+        tmp_path, spec):
+    cell, entries = _owner_cell(tmp_path, spec, fail_at=2)
+    with pytest.raises(RuntimeError, match="request 2 failed"):
+        harness.run_cell(cell, seed=2 ** 35 + 2, seconds=5.0, trace=False,
+                         device="cpu", log=lambda *a: None)
+    assert _ended(entries)
+
+
+def test_a_configuration_is_judged_by_the_reference_it_names(monkeypatch):
+    judged = []
+    load = harness._load_module
+
+    def spy(path):
+        module = load(path)
+        if path.parent.name == "reference":
+            match = module.match
+
+            def counted(*args, **kwargs):
+                judged.append(path.name)
+                return match(*args, **kwargs)
+
+            module.match = counted
+        return module
+
+    monkeypatch.setattr(harness, "_load_module", spy)
+    cell = tiny_cell("cones.stream", pairs=1)
+    cell.config["reference"] = "adcensus_blocked"
+    out = harness.run_cell(cell, seed=2 ** 35 + 3, seconds=0.0, trace=False,
+                           device="cpu", log=lambda *a: None)
+    assert out.correct, out.checks
+    assert judged == ["adcensus_blocked.py"]
+    lefts, rights, _ = harness.make_pool(cell, 5)
+    harness.control_entry(cell, "cpu", torch.float32)(
+        np.stack(lefts[:1]), np.stack(rights[:1]))
+    assert judged == ["adcensus_blocked.py"] * 2
+
+
+def test_a_configuration_naming_no_reference_file_is_refused_first():
+    cell = tiny_cell("cones.stream")
+    cell.config["reference"] = "nope"
+    sent = []
+
+    def entry(lefts, rights):
+        sent.append(len(lefts))
+        return np.zeros(lefts.shape[:3], np.float32)
+
+    with pytest.raises(FileNotFoundError, match="no reference"):
+        harness.run_cell(cell, seed=1, seconds=0.0, trace=False,
+                         device="cpu", entry=entry, log=lambda *a: None)
+    assert sent == []
 
 
 @pytest.mark.parametrize("change, error", [

@@ -6,20 +6,27 @@ import json
 import subprocess
 import sys
 
+import pytest
+
 from conftest import ROOT
 
 BENCH = ROOT / "stereo_bench"
 FORBIDDEN = {"jax", "jaxlib", "flax", "adcensus_tpu"}
 
 
-def top_level_imports(path):
+def imports(path):
+    """The whole names of the modules that ``path`` imports."""
     names = set()
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
-            names |= {a.name.split(".", 1)[0] for a in node.names}
+            names |= {a.name for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            names.add(node.module.split(".", 1)[0])
+            names.add(node.module)
     return names
+
+
+def top_level_imports(path):
+    return {name.split(".", 1)[0] for name in imports(path)}
 
 
 def sources():
@@ -33,8 +40,9 @@ def test_no_source_of_the_benchmark_names_jax():
 
 def test_the_reference_names_nothing_of_the_program():
     for path in (BENCH / "reference").rglob("*.py"):
-        assert top_level_imports(path) <= {"__future__", "math", "numpy",
-                                           "torch"}, path
+        assert imports(path) <= {"__future__", "functools", "math", "numpy",
+                                 "torch", "types",
+                                 "stereo_bench.reference"}, path
 
 
 def _modules_after(code: str):
@@ -58,10 +66,11 @@ def test_a_run_loads_no_jax_module():
     assert not names & FORBIDDEN
 
 
-def test_the_reference_runs_without_the_program():
+@pytest.mark.parametrize("module", ["adcensus", "adcensus_blocked"])
+def test_the_reference_runs_without_the_program(module):
     code = (
         "import sys, json, numpy as np; sys.path.insert(0, '.');"
-        "from stereo_bench.reference import adcensus as ref;"
+        f"from stereo_bench.reference import {module} as ref;"
         "from stereo_bench.scenes import two_layer;"
         "l, r, g = two_layer.make(16, 30, {'d_bg': 2, 'd_fg': 4},"
         " np.random.default_rng(1));"
