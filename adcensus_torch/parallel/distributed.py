@@ -9,6 +9,7 @@ hang. It reads no variable of the shell: the caller names the rendezvous
 """
 from __future__ import annotations
 
+from datetime import timedelta
 from typing import Optional
 
 import torch
@@ -23,12 +24,15 @@ def initialize(
     world_size: Optional[int] = None,
     rank: Optional[int] = None,
     backend: Optional[str] = None,
+    timeout: Optional[timedelta] = None,
 ) -> None:
     """Start this rank's process group. ``world_size`` and ``rank`` come
     together; without them the process is a world of one. More than one
     process needs ``init_method``; one process without it rendezvous in
     memory. ``backend`` defaults to "nccl" with a CUDA device (the rank
     then takes device ``rank % device_count``) and "gloo" without.
+    ``timeout`` bounds the rendezvous and each collective's wait for its
+    peers (default: torch's).
     Every argument is checked before any call into torch.distributed,
     so a bad configuration raises ValueError instead of hanging."""
     if (world_size is None) != (rank is None):
@@ -56,10 +60,11 @@ def initialize(
         torch.cuda.set_device(rank % torch.cuda.device_count())
     if init_method:
         dist.init_process_group(backend, init_method=init_method,
-                                world_size=world_size, rank=rank)
+                                world_size=world_size, rank=rank,
+                                timeout=timeout)
     else:
         dist.init_process_group(backend, store=dist.HashStore(),
-                                world_size=1, rank=0)
+                                world_size=1, rank=0, timeout=timeout)
 
 
 def pod_mesh(n_data: Optional[int] = None) -> DeviceMesh:

@@ -8,7 +8,9 @@ sharded over image rows on ``tile``, and pairs over ``data``:
 
 * census, arms, support counts and the scanline's color distances are
   built cooperatively: each rank computes its own row (or column) slab
-  from enough context rows, and all-gathers rebuild the full arrays;
+  from enough context rows, and all-gathers rebuild the full arrays (the
+  census only in the disp layout: a row slab's cost reads its own rows'
+  census alone);
 * cost init, the horizontal scanline passes, WTA and the LR check are
   row-local;
 * cross aggregation (kernel B1) and region voting (kernel B3) exchange a
@@ -28,6 +30,17 @@ sharded over image rows on ``tile``, and pairs over ``data``:
 blocks instead (no halos), then one all-to-all reshards to rows for the
 same tail. Every collective of a match runs on every rank of the group in
 the same order, and nothing in the body reads the device from the host.
+
+Each stage runs in one span named from ``profiling.STAGES``, in
+``match_core``'s order: ``cost`` pads the images and holds the census of
+own rows and the cost planes; ``arms`` the arms and their gather;
+``aggregation`` the support counts and their gather, and the four cross
+passes with their halos (in the disp layout also the reshard to rows);
+``scanline`` the color distances, their gather and the four passes with
+both reshards; ``wta``; ``refine``. Each collective runs in a span
+``shard.<kind>`` (``COMM_KINDS``) inside the stage that calls it, but for
+the final gather of the map, in the caller's span; ``comm_bytes`` counts
+what each kind moves.
 """
 from __future__ import annotations
 
@@ -59,12 +72,25 @@ from adcensus_torch.stages import refine as refine_stage
 from adcensus_torch.stages import wta as wta_stage
 from adcensus_torch.stages.pipeline import validate_inputs
 from adcensus_torch.stages.scanline import _scan_flags, code_volume
+from adcensus_torch.utils.profiling import (
+    AGGREGATION, ARMS, COST, REFINE, SCANLINE, WTA, span,
+)
 
 VOLUME_AXES = ("rows", "disp")
 # newer torch names all_gather_into_tensor all_gather_single (same
 # arguments) and warns on the old name
 _all_gather_base = getattr(dist, "all_gather_single",
                            dist.all_gather_into_tensor)
+# The collectives' kinds, each a span ``shard.<kind>``.
+COMM_KINDS = ("broadcast", "halo", "all_gather", "all_to_all")
+# Bytes this rank sent and received by kind of collective since the last
+# reset_comm_bytes(), counted on the host from the tensors' sizes (never
+# read from the device) and as the collective's meaning has it, not as
+# its algorithm routes them: an all-gather sends the rank's block to and
+# receives one from each of the n - 1 others, an all-to-all its n - 1
+# blocks for others, a halo exchange its isends and irecvs; a broadcast's
+# root sends to the n - 1 others, each of which receives once.
+comm_bytes = {kind: {"sent": 0, "received": 0} for kind in COMM_KINDS}
 
 
 class _Shard(NamedTuple):
@@ -112,6 +138,27 @@ def _wire(x: torch.Tensor) -> torch.Tensor:
     return (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
 
 
+def _count(kind: str, sent: int, received: int) -> None:
+    comm_bytes[kind]["sent"] += sent
+    comm_bytes[kind]["received"] += received
+
+
+def reset_comm_bytes() -> None:
+    for kind in comm_bytes.values():
+        kind["sent"] = kind["received"] = 0
+
+
+def _broadcast(x: torch.Tensor, group: dist.ProcessGroup) -> None:
+    """``x`` of the group's first rank, in place on every rank of it."""
+    with span("shard.broadcast"):
+        n = dist.get_world_size(group)
+        dist.broadcast(x, src=dist.get_process_group_ranks(group)[0],
+                       group=group)
+        root = dist.get_group_rank(group, dist.get_rank()) == 0
+        _count("broadcast", (n - 1) * x.nbytes if root else 0,
+               0 if root else x.nbytes)
+
+
 def _halo_rows(slab: torch.Tensor, halo: int, axis: int,
                sh: _Shard) -> torch.Tensor:
     """``slab`` with ``halo`` rows of the row-neighbour ranks of the tile
@@ -128,48 +175,55 @@ def _halo_rows(slab: torch.Tensor, halo: int, axis: int,
         shape[axis] = halo
         zeros = slab.new_zeros(shape)
         return torch.cat([zeros, slab, zeros], dim=axis)
-    send = _wire(slab)
-    hops = -(-halo // rows)
-    ops, above, below = [], [], []
-    for s in range(1, hops + 1):
-        k = min(rows, halo - (s - 1) * rows)  # rows kept from hop s
-        shape = list(send.shape)
-        shape[axis] = k
-        up = send.new_zeros(shape)    # the last k rows of rank i - s
-        down = send.new_zeros(shape)  # the first k rows of rank i + s
-        if sh.i - s >= 0:
-            peer = sh.ranks[sh.i - s]
-            ops.append(dist.P2POp(dist.irecv, up, peer, sh.group))
-            ops.append(dist.P2POp(
-                dist.isend, send.narrow(axis, 0, k).contiguous(), peer,
-                sh.group))
-        if sh.i + s < sh.n:
-            peer = sh.ranks[sh.i + s]
-            ops.append(dist.P2POp(
-                dist.isend, send.narrow(axis, rows - k, k).contiguous(),
-                peer, sh.group))
-            ops.append(dist.P2POp(dist.irecv, down, peer, sh.group))
-        above.append(up)
-        below.append(down)
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    out = torch.cat(above[::-1] + [send] + below, dim=axis)
-    return out.to(torch.bool) if slab.dtype == torch.bool else out
+    with span("shard.halo"):
+        send = _wire(slab)
+        hops = -(-halo // rows)
+        ops, above, below = [], [], []
+        for s in range(1, hops + 1):
+            k = min(rows, halo - (s - 1) * rows)  # rows kept from hop s
+            shape = list(send.shape)
+            shape[axis] = k
+            up = send.new_zeros(shape)    # the last k rows of rank i - s
+            down = send.new_zeros(shape)  # the first k rows of rank i + s
+            if sh.i - s >= 0:
+                peer = sh.ranks[sh.i - s]
+                ops.append(dist.P2POp(dist.irecv, up, peer, sh.group))
+                ops.append(dist.P2POp(
+                    dist.isend, send.narrow(axis, 0, k).contiguous(), peer,
+                    sh.group))
+            if sh.i + s < sh.n:
+                peer = sh.ranks[sh.i + s]
+                ops.append(dist.P2POp(
+                    dist.isend, send.narrow(axis, rows - k, k).contiguous(),
+                    peer, sh.group))
+                ops.append(dist.P2POp(dist.irecv, down, peer, sh.group))
+            above.append(up)
+            below.append(down)
+        _count("halo",
+               sum(op.tensor.nbytes for op in ops if op.op is dist.isend),
+               sum(op.tensor.nbytes for op in ops if op.op is dist.irecv))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        out = torch.cat(above[::-1] + [send] + below, dim=axis)
+        return out.to(torch.bool) if slab.dtype == torch.bool else out
 
 
 def _all_gather(x: torch.Tensor, axis: int,
                 group: dist.ProcessGroup) -> torch.Tensor:
     """The group's ``x`` concatenated along ``axis`` in rank order (JAX's
     tiled ``all_gather``)."""
-    n = dist.get_world_size(group)
-    send = _wire(x)
-    # gathered along dim 0, which every backend takes, then moved
-    out = send.new_empty((n * send.shape[0],) + tuple(send.shape[1:]))
-    _all_gather_base(out, send, group=group)
-    shape = list(send.shape)
-    shape[axis] *= n
-    out = out.view((n,) + tuple(send.shape)).movedim(0, axis).reshape(shape)
-    return out.to(torch.bool) if x.dtype == torch.bool else out
+    with span("shard.all_gather"):
+        n = dist.get_world_size(group)
+        send = _wire(x)
+        # gathered along dim 0, which every backend takes, then moved
+        out = send.new_empty((n * send.shape[0],) + tuple(send.shape[1:]))
+        _all_gather_base(out, send, group=group)
+        _count("all_gather", (n - 1) * send.nbytes, (n - 1) * send.nbytes)
+        shape = list(send.shape)
+        shape[axis] *= n
+        out = out.view((n,) + tuple(send.shape)).movedim(0, axis).reshape(
+            shape)
+        return out.to(torch.bool) if x.dtype == torch.bool else out
 
 
 def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
@@ -177,11 +231,14 @@ def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
     """Block j of ``x`` along ``split_axis`` goes to rank j; the blocks
     received are concatenated along ``concat_axis`` in rank order (JAX's
     tiled ``all_to_all``)."""
-    n = dist.get_world_size(group)
-    send = torch.stack(x.chunk(n, dim=split_axis))
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=group)
-    return torch.cat(recv.unbind(0), dim=concat_axis)
+    with span("shard.all_to_all"):
+        n = dist.get_world_size(group)
+        send = torch.stack(x.chunk(n, dim=split_axis))
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=group)
+        block = send.nbytes // n
+        _count("all_to_all", (n - 1) * block, (n - 1) * block)
+        return torch.cat(recv.unbind(0), dim=concat_axis)
 
 
 def _shard(mesh: DeviceMesh, h: int, w: int, opts: ADCensusOptions) -> _Shard:
@@ -197,62 +254,68 @@ def _shard(mesh: DeviceMesh, h: int, w: int, opts: ADCensusOptions) -> _Shard:
     )
 
 
-def _precompute(left, right, gray_l, gray_r, opts: ADCensusOptions,
-                sh: _Shard) -> dict:
-    """Image-level arrays, built cooperatively and shared by both volume
-    layouts: census from a 4-row context slab, arms from a ``halo``-row
-    one (both in the image's coordinates), support counts from the
-    gathered arms, the scanline's color distances of the x passes on own
-    rows and of the y passes on own columns. Each rank builds its own
-    slab; two all-gathers rebuild the full census, arms and support
-    counts, and a third the full-width right-image y distances that the
-    epipolar lookup reads. ``arms`` and ``sup_*`` carry ``halo`` extra
-    rows top and bottom (arms 0, support 1), so a haloed row slab is a
-    plain slice."""
-    h, w, hp, wp, halo = sh.h, sh.w, sh.hp, sh.wp, sh.halo
-    r0, c0, h_local, w_local = sh.r0, sh.c0, sh.h_local, sh.w_local
-    dev = left.device
-    left_p = _pad_hw(left, hp, wp, 0)
-    right_p = _pad_hw(right, hp, wp, 0)
+def _row_valid(sh: _Shard, dev) -> torch.Tensor:
+    """(h_local, wp): the rank's own rows' pixels that lie in the image."""
+    gy = sh.r0 + torch.arange(sh.h_local, device=dev)
+    return (gy < sh.h)[:, None] & (torch.arange(sh.wp, device=dev)
+                                   < sh.w)[None]
 
-    def census_own(gray):
-        ctx = _pad_rows(_pad_hw(gray, hp, wp, 0), 4, 4)
-        slab = ctx[r0 : r0 + h_local + 8]
-        cen = cost_stage.census_transform_9x7(
-            slab, row_offset=r0 - 4, full_h=h, full_w=w
-        )
-        return cen[4 : 4 + h_local]
 
-    # arms of own rows from a halo-row context slab; anchors outside the
-    # image keep arms 0
+def _census_own(gray, sh: _Shard) -> torch.Tensor:
+    """The census of the rank's own rows, from a 4-row context slab in
+    the image's coordinates."""
+    ctx = _pad_rows(_pad_hw(gray, sh.hp, sh.wp, 0), 4, 4)
+    slab = ctx[sh.r0 : sh.r0 + sh.h_local + 8]
+    cen = cost_stage.census_transform_9x7(
+        slab, row_offset=sh.r0 - 4, full_h=sh.h, full_w=sh.w
+    )
+    return cen[4 : 4 + sh.h_local]
+
+
+def _arms(left_p, opts: ADCensusOptions, sh: _Shard) -> torch.Tensor:
+    """The (hp + 2 halo, wp, 4) arms of the whole padded image, ``halo``
+    rows of 0 top and bottom, so that a haloed row slab is a plain
+    slice: each rank builds its own rows from a ``halo``-row context slab
+    (anchors outside the image keep arms 0), and an all-gather rebuilds
+    the rest."""
+    halo, r0, h_local = sh.halo, sh.r0, sh.h_local
     lslab = _pad_rows(left_p, halo, halo)[r0 : r0 + h_local + 2 * halo]
     arms_own = arms_stage.build_arms(
-        lslab, opts, row_offset=r0 - halo, full_h=h, full_w=w
+        lslab, opts, row_offset=r0 - halo, full_h=sh.h, full_w=sh.w
     )[halo : halo + h_local]
-    gy = r0 + torch.arange(h_local, device=dev)
-    row_valid = (gy < h)[:, None] & (torch.arange(wp, device=dev) < w)[None]
-    arms_own = torch.where(row_valid[..., None], arms_own, 0)
+    arms_own = torch.where(_row_valid(sh, left_p.device)[..., None],
+                           arms_own, 0)
+    arms_full = _all_gather(arms_own.permute(2, 0, 1), 1, sh.group)
+    return _pad_rows(arms_full.permute(1, 2, 0).contiguous(), halo, halo)
 
-    # gather 1: census (int64) and arms as one (6, hp, wp) int64 stack
-    stack = _all_gather(torch.cat([
-        census_own(gray_l)[None], census_own(gray_r)[None],
-        arms_own.permute(2, 0, 1).to(torch.int64),
-    ]), 1, sh.group)
-    arms_full = stack[2:6].permute(1, 2, 0).to(torch.int32).contiguous()
-    arms_pad = _pad_rows(arms_full, halo, halo)
 
-    # gather 2: support counts of own rows from the gathered arms
-    aslab = arms_pad[r0 : r0 + h_local + 2 * halo]
-    sup_h, sup_v = agg_stage.support_counts(aslab, halo)
-    own = slice(halo, halo + h_local)
+def _support(arms, sh: _Shard):
+    """(sup_h, sup_v): the support counts of the whole padded image as
+    float32, ``halo`` rows of 1 top and bottom like ``arms``: each rank
+    counts its own rows from the haloed slab of the gathered arms, and an
+    all-gather rebuilds the rest."""
+    halo = sh.halo
+    sup_h, sup_v = agg_stage.support_counts(
+        arms[sh.r0 : sh.r0 + sh.h_local + 2 * halo], halo)
+    own = slice(halo, halo + sh.h_local)
     sup = _all_gather(torch.stack([sup_h[own], sup_v[own]]), 1, sh.group)
+    return (_pad_rows(sup[0], halo, halo, 1).to(torch.float32),
+            _pad_rows(sup[1], halo, halo, 1).to(torch.float32))
 
-    # the scanline's color distances: x maps on own rows, y maps on own
-    # columns (x shifts never cross rows, y shifts never cross columns);
-    # padding is 0, as the unpadded images' zero fill reads
-    col_valid = (torch.arange(hp, device=dev) < h)[:, None] & (
-        c0 + torch.arange(w_local, device=dev) < w)[None]
-    lrow, rrow = left_p[r0 : r0 + h_local], right_p[r0 : r0 + h_local]
+
+def _scan_dists(left_p, right_p, sh: _Shard) -> dict:
+    """The scanline's color distances: the x passes' maps on own rows and
+    the y passes' on own columns (x shifts never cross rows, y shifts
+    never cross columns); padding is 0, as the unpadded images' zero fill
+    reads. The y maps of the right image, which the epipolar lookup reads
+    at any column, are all-gathered to full width."""
+    c0, w_local = sh.c0, sh.w_local
+    dev = left_p.device
+    row_valid = _row_valid(sh, dev)
+    col_valid = (torch.arange(sh.hp, device=dev) < sh.h)[:, None] & (
+        c0 + torch.arange(w_local, device=dev) < sh.w)[None]
+    own = slice(sh.r0, sh.r0 + sh.h_local)
+    lrow, rrow = left_p[own], right_p[own]
     lcol, rcol = left_p[:, c0 : c0 + w_local], right_p[:, c0 : c0 + w_local]
 
     def dist_map(img, dy, dx, mask):
@@ -265,18 +328,10 @@ def _precompute(left, right, gray_l, gray_r, opts: ADCensusOptions,
                             dist_map(rrow, 0, step, row_valid))
         dists[("y", fw)] = dist_map(lcol, step, 0, col_valid)
         rd_y.append(dist_map(rcol, step, 0, col_valid))
-    # gather 3: the y maps of the right image at full width
     rd_y = _all_gather(torch.stack(rd_y), 2, sh.group)
     for k, fw in enumerate((True, False)):
         dists[("y", fw)] = (dists[("y", fw)], rd_y[k])
-
-    return dict(
-        census_l=stack[0].contiguous(), census_r=stack[1].contiguous(),
-        arms=arms_pad,
-        sup_h=_pad_rows(sup[0], halo, halo, 1).to(torch.float32),
-        sup_v=_pad_rows(sup[1], halo, halo, 1).to(torch.float32),
-        left=left_p, right=right_p, dists=dists,
-    )
+    return dists
 
 
 def _aggregate(vol, arms, sup_h, sup_v, max_arm, cross_backend, keep=None):
@@ -304,20 +359,27 @@ def _aggregate(vol, arms, sup_h, sup_v, max_arm, cross_backend, keep=None):
 def _pair_body(left, right, gray_l, gray_r, opts: ADCensusOptions,
                sh: _Shard, cross_backend: str) -> torch.Tensor:
     """One pair with the volume sharded over image rows end to end: this
-    rank's (h_local, wp) rows of the disparity map."""
-    pre = _precompute(left, right, gray_l, gray_r, opts, sh)
+    rank's (h_local, wp) rows of the disparity map. The cost of own rows
+    reads own rows' census only, so the census is never gathered."""
     r0, h_local, halo = sh.r0, sh.h_local, sh.halo
     own = slice(r0, r0 + h_local)
-    vol = cost_stage.compute_cost_planes(
-        pre["left"][own], pre["right"][own], pre["census_l"][own],
-        pre["census_r"][own], opts, 0, opts.disp_range, real_w=sh.w,
-    )  # (D, h_local, wp)
-    # arms and support were padded with `halo` rows on both sides, so
-    # the haloed slab is rows [r0 - halo, r0 + h_local + halo)
-    halo_rows = slice(r0, r0 + h_local + 2 * halo)
-    vol = _aggregate(vol, pre["arms"][halo_rows], pre["sup_h"][halo_rows],
-                     pre["sup_v"][halo_rows], halo, cross_backend, keep=sh)
-    return _tail_rows(vol, pre, opts, sh, cross_backend)
+    with span(COST):
+        left_p = _pad_hw(left, sh.hp, sh.wp, 0)
+        right_p = _pad_hw(right, sh.hp, sh.wp, 0)
+        vol = cost_stage.compute_cost_planes(
+            left_p[own], right_p[own], _census_own(gray_l, sh),
+            _census_own(gray_r, sh), opts, 0, opts.disp_range, real_w=sh.w,
+        )  # (D, h_local, wp)
+    with span(ARMS):
+        arms = _arms(left_p, opts, sh)
+    with span(AGGREGATION):
+        sup_h, sup_v = _support(arms, sh)
+        # arms and support carry `halo` rows on both sides, so the haloed
+        # slab is rows [r0 - halo, r0 + h_local + halo)
+        halo_rows = slice(r0, r0 + h_local + 2 * halo)
+        vol = _aggregate(vol, arms[halo_rows], sup_h[halo_rows],
+                         sup_v[halo_rows], halo, cross_backend, keep=sh)
+    return _tail_rows(vol, left_p, right_p, arms, opts, sh, cross_backend)
 
 
 def _pair_body_disp(left, right, gray_l, gray_r, opts: ADCensusOptions,
@@ -326,17 +388,25 @@ def _pair_body_disp(left, right, gray_l, gray_r, opts: ADCensusOptions,
     cost init and aggregation (no halos: aggregation never mixes
     planes), then one all-to-all to row blocks for the same tail as the
     rows layout. Each phase holds 1/n of the volume."""
-    pre = _precompute(left, right, gray_l, gray_r, opts, sh)
     d_local = opts.disp_range // sh.n
-    vol = cost_stage.compute_cost_planes(
-        pre["left"], pre["right"], pre["census_l"], pre["census_r"], opts,
-        sh.i * d_local, d_local, real_w=sh.w,
-    )  # (d_local, hp, wp)
-    image = slice(sh.halo, sh.halo + sh.hp)
-    vol = _aggregate(vol, pre["arms"][image], pre["sup_h"][image],
-                     pre["sup_v"][image], sh.halo, cross_backend)
-    vol = _all_to_all(vol, 1, 0, sh.group)  # (D, h_local, wp)
-    return _tail_rows(vol, pre, opts, sh, cross_backend)
+    with span(COST):
+        left_p = _pad_hw(left, sh.hp, sh.wp, 0)
+        right_p = _pad_hw(right, sh.hp, sh.wp, 0)
+        census = _all_gather(torch.stack(
+            [_census_own(gray_l, sh), _census_own(gray_r, sh)]), 1, sh.group)
+        vol = cost_stage.compute_cost_planes(
+            left_p, right_p, census[0].contiguous(), census[1].contiguous(),
+            opts, sh.i * d_local, d_local, real_w=sh.w,
+        )  # (d_local, hp, wp)
+    with span(ARMS):
+        arms = _arms(left_p, opts, sh)
+    with span(AGGREGATION):
+        sup_h, sup_v = _support(arms, sh)
+        image = slice(sh.halo, sh.halo + sh.hp)
+        vol = _aggregate(vol, arms[image], sup_h[image], sup_v[image],
+                         sh.halo, cross_backend)
+        vol = _all_to_all(vol, 1, 0, sh.group)  # (D, h_local, wp)
+    return _tail_rows(vol, left_p, right_p, arms, opts, sh, cross_backend)
 
 
 def _scan(vol, code, opts, axis, forward, valid):
@@ -347,33 +417,46 @@ def _scan(vol, code, opts, axis, forward, valid):
                          reverse=not forward)
 
 
-def _tail_rows(vol, pre, opts: ADCensusOptions, sh: _Shard,
-               cross_backend: str) -> torch.Tensor:
+def _tail_rows(vol, left_p, right_p, arms, opts: ADCensusOptions,
+               sh: _Shard, cross_backend: str) -> torch.Tensor:
     """Scanline, WTA and refinement of a row-sharded (D, h_local, wp)
-    volume: this rank's (h_local, wp) disparity rows, +inf outside the
-    image."""
+    volume, given the padded images and the haloed arms of ``_arms``:
+    this rank's (h_local, wp) disparity rows, +inf outside the image."""
+    h, w, hp = sh.h, sh.w, sh.hp
+    dev = vol.device
+    cols = torch.arange(sh.wp, device=dev)
+
+    # ---- scanline: x passes on own rows, y passes on own columns -------
+    with span(SCANLINE):
+        dists = _scan_dists(left_p, right_p, sh)
+        for fwd in (True, False):
+            d1, rd = dists[("x", fwd)]
+            vol = _scan(vol, code_volume(d1, rd, opts, w, 0), opts, "x",
+                        fwd, cols < w)
+        vol = _all_to_all(vol, 2, 1, sh.group)  # (D, hp, w_local)
+        for fwd in (True, False):
+            d1, rd = dists[("y", fwd)]
+            vol = _scan(vol, code_volume(d1, rd, opts, w, sh.c0),
+                        opts, "y", fwd, torch.arange(hp, device=dev) < h)
+        vol = _all_to_all(vol, 1, 2, sh.group)  # (D, h_local, wp)
+
+    # ---- WTA: pad columns behave like out-of-image ----------------------
+    with span(WTA):
+        vol = torch.where((cols >= w)[None, None, :], LARGE_FLOAT, vol)
+        disp_l = wta_stage.wta_left(vol, opts)
+        disp_r = wta_stage.wta_right(vol, opts)
+    with span(REFINE):
+        return _refine_rows(disp_l, disp_r, vol, left_p, arms, opts, sh,
+                            cross_backend)
+
+
+def _refine_rows(disp_l, disp_r, vol, left_p, arms, opts: ADCensusOptions,
+                 sh: _Shard, cross_backend: str) -> torch.Tensor:
+    """The refinement of ``_tail_rows``: this rank's disparity rows."""
     h, w, hp, wp, halo = sh.h, sh.w, sh.hp, sh.wp, sh.halo
     r0, h_local = sh.r0, sh.h_local
     dev = vol.device
-    dists = pre["dists"]
     cols = torch.arange(wp, device=dev)
-
-    # ---- scanline: x passes on own rows, y passes on own columns -------
-    for fwd in (True, False):
-        d1, rd = dists[("x", fwd)]
-        vol = _scan(vol, code_volume(d1, rd, opts, w, 0), opts, "x",
-                    fwd, cols < w)
-    vol = _all_to_all(vol, 2, 1, sh.group)  # (D, hp, w_local)
-    for fwd in (True, False):
-        d1, rd = dists[("y", fwd)]
-        vol = _scan(vol, code_volume(d1, rd, opts, w, sh.c0),
-                    opts, "y", fwd, torch.arange(hp, device=dev) < h)
-    vol = _all_to_all(vol, 1, 2, sh.group)  # (D, h_local, wp)
-
-    # ---- WTA: pad columns behave like out-of-image ----------------------
-    vol = torch.where((cols >= w)[None, None, :], LARGE_FLOAT, vol)
-    disp_l = wta_stage.wta_left(vol, opts)
-    disp_r = wta_stage.wta_right(vol, opts)
 
     # ---- refinement, gated as multistep_refine gates it -----------------
     row_ids = r0 + torch.arange(h_local, device=dev)
@@ -392,7 +475,7 @@ def _tail_rows(vol, pre, opts: ADCensusOptions, sh: _Shard,
     if opts.do_filling:
         # voting on the haloed slab, so that regions crossing the slab's
         # edge see their whole support; no target in the halo rows
-        arms = pre["arms"][r0 : r0 + h_local + 2 * halo]
+        arms = arms[r0 : r0 + h_local + 2 * halo]
         masks = (vote_band_masks(arms, halo) if cross_backend == "matmul"
                  else None)
         own = slice(halo, halo + h_local)
@@ -412,7 +495,7 @@ def _tail_rows(vol, pre, opts: ADCensusOptions, sh: _Shard,
         def interp_phase(disp, target, is_mismatch):
             full = _all_gather(disp, 0, sh.group)
             fills = refine_stage.interpolation_fills(
-                full, pre["left"], opts, is_mismatch,
+                full, left_p, opts, is_mismatch,
                 target=_pad_rows(target, r0, hp - r0 - h_local, False),
             )
             return torch.where(target, fills[r0 : r0 + h_local], disp)

@@ -1,0 +1,10 @@
+"""stages.cost.device_ms: device ms a pair of the operations launched
+while the host's innermost span was "cost": in the sharded body,
+the images' padding, the census of own rows and the cost planes (in the disp layout also the census's gather). A collective's operations fall in its own span
+(shard.*), not in the stage's. Launch calls are matched to operations in
+order (stereo_bench/spans.py)."""
+from stereo_bench import spans
+
+
+def read(trace):
+    return spans.device_ms(trace, "cost")

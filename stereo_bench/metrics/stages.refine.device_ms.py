@@ -1,0 +1,10 @@
+"""stages.refine.device_ms: device ms a pair of the operations launched
+while the host's innermost span was "refine": in the sharded body,
+the LR check, voting (B3), interpolation (B4) and the median. A collective's operations fall in its own span
+(shard.*), not in the stage's. Launch calls are matched to operations in
+order (stereo_bench/spans.py)."""
+from stereo_bench import spans
+
+
+def read(trace):
+    return spans.device_ms(trace, "refine")
