@@ -36,7 +36,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "cross_sum": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _P),
-    "scanline": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
+    "scanline": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I,
                  _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "region_vote": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "ray_interp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -15,6 +15,7 @@ with Large_Float at d = -1 and d = D.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -49,25 +50,27 @@ def scanline_layout(d: int, pb: int, k: int, axis: str):
     """One ring slot of kernel B2 in bytes, as csrc/scanline.cu lays it
     out: a (D, outer, inner) f32 cost tile whose inner axis is the
     volume's contiguous one (steps on x passes, paths on y passes) and
-    whose rows hold exactly their cells; a uint8 code tile whose rows are
-    the grain-aligned windows that cover their ``inner`` codes (16-byte
-    grains on x passes, 4-byte on y passes); and K int32 flags. An odd
-    number of 8-byte units (grains) between d-planes spreads the lanes of
-    a warp, one d apart, over the banks.
+    whose rows hold exactly their cells; the chunk's left-image flags,
+    ``outer`` rows each the grain-aligned window that covers its
+    ``inner`` flags (16-byte grains on x passes, 4-byte on y passes); the
+    right-image flags that the chunk's codes look up, ``outer`` rows (x:
+    paths, y: steps) each the 16-byte grains that cover ``inner + D - 1``
+    columns; and K int32 step flags. An odd number of 8-byte units
+    between the cost tile's d-planes spreads the lanes of a warp, one d
+    apart, over the banks.
 
-    Returns (inner, outer, cost d-stride, code grain, code grains per
-    row, code d-stride, slot bytes)."""
+    Returns (inner, outer, cost d-stride, left grain, left grains per
+    row, right grains per row, slot bytes)."""
     inner, outer = (k, pb) if axis == "x" else (pb, k)
     cost_ds = -(-outer * inner * 4 // 8) * 8
     if cost_ds // 8 % 2 == 0:
         cost_ds += 8
     grain = 16 if axis == "x" else 4
     groups = (2 * grain - 2 + inner) // grain
-    code_ds = outer * groups * grain
-    if code_ds // grain % 2 == 0:
-        code_ds += grain
-    slot = _round16(d * cost_ds) + _round16(d * code_ds) + _round16(4 * k)
-    return inner, outer, cost_ds, grain, groups, code_ds, slot
+    right_groups = (30 + inner + d - 1) // 16
+    slot = (_round16(d * cost_ds) + _round16(outer * groups * grain)
+            + outer * right_groups * 16 + _round16(4 * k))
+    return inner, outer, cost_ds, grain, groups, right_groups, slot
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,52 +181,118 @@ def scanline_pass_plain(
     return out.permute(2, 0, 1).contiguous()
 
 
+def penalty_codes(
+    d1: torch.Tensor,
+    rd: torch.Tensor,
+    d: int,
+    tso: int,
+    min_disparity: int = 0,
+    col0: int = 0,
+    real_w: Optional[int] = None,
+) -> torch.Tensor:
+    """(D, rows, out_w) uint8 penalty codes of columns [col0, col0 + out_w)
+    (0: both gradients < tso, 1: exactly one >= tso, 2: both >= tso;
+    scanline_optimizer.cpp:128-141) from their left-image distances ``d1``
+    (rows, out_w) and the right image's ``rd`` (rows, W) at full width,
+    since the epipolar lookup rd[y, x - d] crosses any split of the
+    columns; ``real_w`` (default W) is the image's width.
+
+    The reference's d2 lookup is sticky (scanline_optimizer.cpp:116-126,
+    d2 initialized to d1). As xr = x - d - min_disparity falls with d,
+    that has a closed form:
+
+        d2 = d1[y, x]           if xr >= real_w - 1 or x - min_disparity <= 0
+             rd[y, max(xr, 1)]  otherwise (column 1 is column 0 if W is 1)
+
+    Kernel B2 decodes the same codes per cell from ``d1 >= tso`` and
+    ``rd >= tso``; this is the plain version's volume."""
+    out_w = d1.shape[1]
+    w_full = rd.shape[1]
+    real_w = w_full if real_w is None else real_w
+    dev = rd.device
+    rd_col1 = rd[:, 1:2] if w_full > 1 else rd
+    x = col0 + torch.arange(out_w, device=dev)[None, :]
+    d_abs = torch.arange(d, device=dev)[:, None] + min_disparity
+    xr = x - d_abs  # (D, out_w)
+    use_d1 = (xr >= real_w - 1) | ((x - min_disparity) <= 0)
+    # rd at column xr (out-of-range columns are never selected below)
+    shifted = rd[:, xr.clamp(0, w_full - 1)].permute(1, 0, 2)  # (D, rows, out_w)
+    sticky = torch.where((xr < 1)[:, None, :], rd_col1[None], shifted)
+    d2 = torch.where(use_d1[:, None, :], d1[None], sticky)
+    code = (d1[None] >= tso).to(torch.uint8) + (d2 >= tso).to(torch.uint8)
+    # the gather above leaves a (rows, D, out_w) memory layout
+    return code.contiguous()
+
+
 def scanline_pass(
     cost: torch.Tensor,
-    code: torch.Tensor,
+    d1: torch.Tensor,
+    rd: torch.Tensor,
     flags: torch.Tensor,
+    tso: int,
     p1: float,
     p2: float,
     axis: str,
     reverse: bool,
+    min_disparity: int = 0,
+    col0: int = 0,
+    real_w: Optional[int] = None,
 ) -> torch.Tensor:
     """One pass over a (D, H, W) float32 volume along ``axis`` ("x": rows,
     S = W; "y": columns, S = H), backward when ``reverse``.
 
-    code: (D, H, W) uint8 penalty codes; flags: (S,) int32 FLAG_* values
-    in scan order (the first entry is the first step scanned).
+    The penalty codes are ``penalty_codes(d1, rd, D, tso, min_disparity,
+    col0, real_w)``: d1 (H, W) and rd (H, W_full) int32 color distances,
+    the volume's column 0 being the image's column ``col0``. Kernel B2
+    derives each cell's code from the two maps' flags (``>= tso``), so
+    no (D, H, W) code volume is built on the card; the plain version
+    takes the volume. flags: (S,) int32 FLAG_* values in scan order (the
+    first entry is the first step scanned).
     """
     if axis not in ("x", "y"):
         raise ValueError(f"axis must be 'x' or 'y', got {axis!r}")
     d, h, w = cost.shape
     s_len, paths = (w, h) if axis == "x" else (h, w)
-    s_stride, p_stride = (1, w) if axis == "x" else (w, 1)
+    w_full = rd.shape[1] if rd.dim() == 2 else 0
+    if w_full < 1:
+        raise ValueError(f"rd must be (H, W_full) with W_full >= 1, got "
+                         f"{tuple(rd.shape)}")
     for name, t, dtype, shape in (
         ("cost", cost, torch.float32, (d, h, w)),
-        ("code", code, torch.uint8, (d, h, w)),
+        ("d1", d1, torch.int32, (h, w)),
+        ("rd", rd, torch.int32, (h, w_full)),
         ("flags", flags, torch.int32, (s_len,)),
     ):
         _build.check(name, t, dtype, shape, cost.device)
+    real_w = w_full if real_w is None else real_w
     if not kernels_for(cost):
+        code = penalty_codes(d1, rd, d, tso, min_disparity, col0, real_w)
         return scanline_pass_plain(cost, code, flags, p1, p2, axis, reverse)
-    return launch_pass(cost, code, flags, p1, p2, axis, reverse,
+    return launch_pass(cost, d1 >= tso, rd >= tso, flags, p1, p2, axis,
+                       reverse, min_disparity, col0, real_w,
                        scanline_geometry(d, s_len, paths, axis))
 
 
-def launch_pass(cost, code, flags, p1, p2, axis, reverse, geometry):
-    """Launch kernel B2 on checked CUDA tensors with ``geometry`` =
-    (PB, K, ring slots, shared bytes); ``scanline_pass`` gives it
-    ``scanline_geometry``'s, the card tests and the geometry sweep
-    others."""
+def launch_pass(cost, left, right, flags, p1, p2, axis, reverse,
+                min_disparity, col0, real_w, geometry):
+    """Launch kernel B2 on checked CUDA tensors: ``left`` (H, W) and
+    ``right`` (H, W_full) the bool flags ``d1 >= tso`` and ``rd >= tso``
+    of ``scanline_pass``, with ``geometry`` = (PB, K, ring slots, shared
+    bytes); ``scanline_pass`` gives it ``scanline_geometry``'s, the card
+    tests and the geometry sweep others."""
     d, h, w = cost.shape
     s_len, paths = (w, h) if axis == "x" else (h, w)
     s_stride, p_stride = (1, w) if axis == "x" else (w, 1)
+    _build.check("left", left, torch.bool, (h, w), cost.device)
+    _build.check("right", right, torch.bool, (h, right.shape[1]),
+                 cost.device)
     (a0, a1, a2), (b0, b1, b2) = penalty_table(p1, p2)
     out = torch.empty_like(cost)
     _build.launch(
         "scanline",
-        cost.data_ptr(), code.data_ptr(), flags.data_ptr(), out.data_ptr(),
-        d, s_len, paths, h * w, s_stride, p_stride,
+        cost.data_ptr(), left.data_ptr(), right.data_ptr(), flags.data_ptr(),
+        out.data_ptr(), d, s_len, paths, h * w, s_stride, p_stride,
+        right.shape[1], col0, min_disparity, real_w,
         float(a0), float(a1), float(a2), float(b0), float(b1), float(b2),
         int(reverse), int(axis == "x"), *geometry,
         torch.cuda.current_stream(cost.device).cuda_stream,

@@ -71,7 +71,7 @@ from adcensus_torch.stages import cost as cost_stage
 from adcensus_torch.stages import refine as refine_stage
 from adcensus_torch.stages import wta as wta_stage
 from adcensus_torch.stages.pipeline import validate_inputs
-from adcensus_torch.stages.scanline import _scan_flags, code_volume
+from adcensus_torch.stages.scanline import _scan_flags
 from adcensus_torch.utils.profiling import (
     AGGREGATION, ARMS, COST, REFINE, SCANLINE, WTA, span,
 )
@@ -409,12 +409,14 @@ def _pair_body_disp(left, right, gray_l, gray_r, opts: ADCensusOptions,
     return _tail_rows(vol, left_p, right_p, arms, opts, sh, cross_backend)
 
 
-def _scan(vol, code, opts, axis, forward, valid):
+def _scan(vol, dists, opts, axis, forward, valid, col0, real_w):
     """One scanline pass (kernel B2) with PAD steps where ``valid`` (in
-    array order) is False."""
+    array order) is False; ``dists`` = (d1, rd) give the penalty codes of
+    volume columns from column ``col0`` of an image ``real_w`` wide."""
     flags = _scan_flags(valid.shape[0], valid if forward else valid.flip(0))
-    return scanline_pass(vol, code, flags, opts.so_p1, opts.so_p2, axis,
-                         reverse=not forward)
+    return scanline_pass(vol, *dists, flags, opts.so_tso, opts.so_p1,
+                         opts.so_p2, axis, not forward, opts.min_disparity,
+                         col0, real_w)
 
 
 def _tail_rows(vol, left_p, right_p, arms, opts: ADCensusOptions,
@@ -430,14 +432,12 @@ def _tail_rows(vol, left_p, right_p, arms, opts: ADCensusOptions,
     with span(SCANLINE):
         dists = _scan_dists(left_p, right_p, sh)
         for fwd in (True, False):
-            d1, rd = dists[("x", fwd)]
-            vol = _scan(vol, code_volume(d1, rd, opts, w, 0), opts, "x",
-                        fwd, cols < w)
+            vol = _scan(vol, dists[("x", fwd)], opts, "x", fwd, cols < w, 0,
+                        w)
         vol = _all_to_all(vol, 2, 1, sh.group)  # (D, hp, w_local)
         for fwd in (True, False):
-            d1, rd = dists[("y", fwd)]
-            vol = _scan(vol, code_volume(d1, rd, opts, w, sh.c0),
-                        opts, "y", fwd, torch.arange(hp, device=dev) < h)
+            vol = _scan(vol, dists[("y", fwd)], opts, "y", fwd,
+                        torch.arange(hp, device=dev) < h, sh.c0, w)
         vol = _all_to_all(vol, 1, 2, sh.group)  # (D, h_local, wp)
 
     # ---- WTA: pad columns behave like out-of-image ----------------------

@@ -2,17 +2,10 @@
 
 Port of ``adcensus_tpu/stages/scanline.py``: four sequential directional
 passes (scanline_optimizer.cpp:40-279), each a call of kernel B2
-(``ops/scanline.py``) fed a compact (D, H, W) uint8 penalty-code volume
-(0: both gradients < tso, 1: exactly one >= tso, 2: both >= tso;
-scanline_optimizer.cpp:128-141).
-
-The reference's d2 lookup is sticky: d2 keeps its previous-d value when
-the right-image column xr = x - d - min_disp leaves (0, w-1)
-(scanline_optimizer.cpp:116-126, d2 initialized to d1). Because xr is
-strictly decreasing in d, stickiness has a closed form:
-
-    d2(d, y, x) = d1(y, x)            if xr >= w-1 or x - min_disp <= 0
-                  rd(y, max(xr, 1))   otherwise
+(``ops/scanline.py``) given the pass's two (H, W) color-distance maps,
+from which it derives each cell's penalty code (0: both gradients < tso,
+1: exactly one >= tso, 2: both >= tso; scanline_optimizer.cpp:128-141)
+with the reference's sticky d2 lookup (``ops/scanline.py:penalty_codes``).
 
 The JAX package pads W to the TPU's 128-lane tile before the passes; the
 CUDA kernel takes strides, so the port runs at the image's own width.
@@ -29,8 +22,21 @@ from adcensus_torch.ops.scanline import (
     FLAG_NORMAL,
     FLAG_PAD,
     FLAG_SEED,
+    penalty_codes,
     scanline_pass as scanline_kernel_pass,
 )
+
+
+def distances(
+    left: torch.Tensor, right: torch.Tensor, axis: str, forward: bool
+) -> tuple:
+    """(d1, rd), int32 (H, W): d1[y, x] = dist(left[p], left[p - step]),
+    whose seed column is never read, and rd the same of the right image."""
+    direction = 1 if forward else -1
+    dy, dx = (0, direction) if axis == "x" else (direction, 0)
+    d1 = color_dist(left, shift2d(left, dy, dx, 0))
+    rd = color_dist(right, shift2d(right, dy, dx, 0))
+    return d1, rd
 
 
 def penalty_code(
@@ -41,14 +47,8 @@ def penalty_code(
     forward: bool,
 ) -> torch.Tensor:
     """(D, H, W) uint8 penalty-code volume for one pass direction."""
-    h, w, _ = left.shape
-    direction = 1 if forward else -1
-    dy, dx = (0, direction) if axis == "x" else (direction, 0)
-    # d1[y, x] = dist(left[p], left[p - step]); the seed column is never read
-    d1 = color_dist(left, shift2d(left, dy, dx, 0))
-    # rd[y, x] = dist(right[y, x], right at p - step in the right image)
-    rd = color_dist(right, shift2d(right, dy, dx, 0))
-    return code_volume(d1, rd, opts, w, 0)
+    d1, rd = distances(left, right, axis, forward)
+    return code_volume(d1, rd, opts, left.shape[1], 0)
 
 
 def code_volume(
@@ -59,27 +59,10 @@ def code_volume(
     col0: int,
 ) -> torch.Tensor:
     """(D, rows, out_w) uint8 penalty codes of columns [col0, col0 + out_w)
-    from their left-image distances ``d1`` (rows, out_w) and the right
-    image's ``rd`` (rows, W) at full width, since the epipolar lookup
-    rd[y, x - d] crosses any split of the columns; ``real_w`` is the
-    image's width. The sharded pipeline's ``_code_volume``."""
-    out_w = d1.shape[1]
-    w_full = rd.shape[1]
-    dev = rd.device
-    rd_col1 = rd[:, 1:2] if w_full > 1 else rd
-    x = col0 + torch.arange(out_w, device=dev)[None, :]
-    d_abs = torch.arange(opts.disp_range, device=dev)[:, None] + opts.min_disparity
-    xr = x - d_abs  # (D, out_w)
-    use_d1 = (xr >= real_w - 1) | ((x - opts.min_disparity) <= 0)
-    # rd at column xr (out-of-range columns are never selected below)
-    shifted = rd[:, xr.clamp(0, w_full - 1)].permute(1, 0, 2)  # (D, rows, out_w)
-    sticky = torch.where((xr < 1)[:, None, :], rd_col1[None], shifted)
-    d2 = torch.where(use_d1[:, None, :], d1[None], sticky)
-    tso = opts.so_tso
-    code = (d1[None] >= tso).to(torch.uint8) + (d2 >= tso).to(torch.uint8)
-    # the gather above leaves a (rows, D, out_w) memory layout; the kernel
-    # reads the code volume through the cost volume's strides
-    return code.contiguous()
+    of an image ``real_w`` wide (``ops/scanline.py:penalty_codes``). The
+    sharded pipeline's ``_code_volume``."""
+    return penalty_codes(d1, rd, opts.disp_range, opts.so_tso,
+                         opts.min_disparity, col0, real_w)
 
 
 def _scan_flags(
@@ -107,11 +90,12 @@ def scanline_pass(
     forward: bool,
 ) -> torch.Tensor:
     """One directional pass over a (D, H, W) volume."""
-    code = penalty_code(left, right, opts, axis, forward)
+    d1, rd = distances(left, right, axis, forward)
     s_len = cost.shape[2] if axis == "x" else cost.shape[1]
     flags = _scan_flags(s_len, device=cost.device)
     return scanline_kernel_pass(
-        cost, code, flags, opts.so_p1, opts.so_p2, axis, reverse=not forward
+        cost, d1, rd, flags, opts.so_tso, opts.so_p1, opts.so_p2, axis,
+        reverse=not forward, min_disparity=opts.min_disparity,
     )
 
 

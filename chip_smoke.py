@@ -327,17 +327,23 @@ def kernel_cases(torch, inter, left, opts):
 
     vol = inter["cost_aggr"]
     for axis, fwd in (("x", True), ("x", False), ("y", True), ("y", False)):
+        # B2 alone, on the flag maps scanline_pass makes from the pass's
+        # distances; the plain version on the code volume
         code = scan_stage.penalty_code(left, inter["right"], opts, axis, fwd)
-        flags = scan_stage._scan_flags(
-            w if axis == "x" else h, device=vol.device
-        )
-        args = (vol, code, flags, opts.so_p1, opts.so_p2, axis, not fwd)
+        d1, rd = scan_stage.distances(left, inter["right"], axis, fwd)
+        s_len, paths = (w, h) if axis == "x" else (h, w)
+        flags = scan_stage._scan_flags(s_len, device=vol.device)
+        args = (vol, d1 >= opts.so_tso, rd >= opts.so_tso, flags, opts.so_p1,
+                opts.so_p2, axis, not fwd, opts.min_disparity, 0, w,
+                scanline.scanline_geometry(d, s_len, paths, axis))
+        plain_args = (vol, code, flags, opts.so_p1, opts.so_p2, axis,
+                      not fwd)
         cases["scanline"].append((
             f"{axis} {'forward' if fwd else 'backward'}",
-            lambda a=args: scanline.scanline_pass(*a),
-            lambda a=args: scanline.scanline_pass_plain(*a), None,
-            dhw * 9 + len(flags) * 4, dhw * 9,
-            (w if axis == "x" else h, "scan step", None),
+            lambda a=args: scanline.launch_pass(*a),
+            lambda a=plain_args: scanline.scanline_pass_plain(*a), None,
+            dhw * 8 + 2 * h * w + s_len * 4, dhw * 9,
+            (s_len, "scan step", None),
         ))
 
     cases["region_vote"] = [

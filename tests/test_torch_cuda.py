@@ -206,18 +206,31 @@ PADDING = {"none": (), "edges": ((0, 3), (-2, None)),
            "middle": ((0, 3), (30, 36)), "late": ((0, 33),)}
 
 
+SCAN_TSO = 15
+
+
 def _scan_inputs(dev, case, axis, negative):
+    """Seeded cost and (d1, rd) distance maps about half of whose pixels
+    reach SCAN_TSO, and the case's flags."""
     d, h, w, padding = SCAN_CASES[case]
     rng = np.random.default_rng(d + h + w)
     cost = rng.random((d, h, w), np.float32) * 2 - (1.0 if negative else 0.0)
-    code = rng.integers(0, 3, (d, h, w), np.uint8)
+    d1, rd = (rng.integers(0, 2 * SCAN_TSO, (h, w), np.int32)
+              for _ in range(2))
     s_len = w if axis == "x" else h
     valid = torch.ones(s_len, dtype=torch.bool, device=dev)
     for lo, hi in PADDING[padding]:
         valid[lo:hi] = False
-    return (torch.as_tensor(cost, device=dev),
-            torch.as_tensor(code, device=dev),
+    return (torch.as_tensor(cost, device=dev), torch.as_tensor(d1, device=dev),
+            torch.as_tensor(rd, device=dev),
             scan_stage._scan_flags(s_len, valid))
+
+
+def _scan_plain(cost, d1, rd, flags, axis, reverse):
+    """Plain B2 on the code volume of (d1, rd)."""
+    code = scanline.penalty_codes(d1, rd, cost.shape[0], SCAN_TSO)
+    return scanline.scanline_pass_plain(cost, code, flags, 1.0, 3.0, axis,
+                                        reverse)
 
 
 @pytest.mark.parametrize("negative", [False, True])
@@ -225,12 +238,12 @@ def _scan_inputs(dev, case, axis, negative):
 @pytest.mark.parametrize("axis,forward",
                          [("x", True), ("x", False), ("y", True), ("y", False)])
 def test_scanline_padded_steps(dev, case, axis, forward, negative):
-    cost, code, flags = _scan_inputs(dev, case, axis, negative)
-    args = (cost, code, flags, 1.0, 3.0, axis, not forward)
+    cost, d1, rd, flags = _scan_inputs(dev, case, axis, negative)
     _build.reset_launches()
-    out = scanline.scanline_pass(*args)
+    out = scanline.scanline_pass(cost, d1, rd, flags, SCAN_TSO, 1.0, 3.0,
+                                 axis, not forward)
     assert _build.launches["scanline"] == 1
-    _assert_bitwise(out, scanline.scanline_pass_plain(*args))
+    _assert_bitwise(out, _scan_plain(cost, d1, rd, flags, axis, not forward))
 
 
 @pytest.mark.parametrize("pb,k,stages", [(1, 1, 2), (2, 4, 2), (8, 8, 3),
@@ -241,33 +254,40 @@ def test_scanline_other_geometries(dev, pb, k, stages, axis, forward):
     """B2 at launch geometries scanline_geometry does not pick for these
     shapes: more paths per block than the grid wants, short chunks, two
     ring slots; partial blocks and chunks, negative costs."""
-    cost, code, flags = _scan_inputs(dev, "pad_across_chunk", axis, True)
+    cost, d1, rd, flags = _scan_inputs(dev, "pad_across_chunk", axis, True)
     d, h, w = cost.shape
     smem = stages * scanline.scanline_layout(d, pb, k, axis)[-1]
-    args = (cost, code, flags, 1.0, 3.0, axis, not forward)
     _assert_bitwise(
-        scanline.launch_pass(*args, (pb, k, stages, smem)),
-        scanline.scanline_pass_plain(*args))
+        scanline.launch_pass(cost, d1 >= SCAN_TSO, rd >= SCAN_TSO, flags,
+                             1.0, 3.0, axis, not forward, 0, 0, w,
+                             (pb, k, stages, smem)),
+        _scan_plain(cost, d1, rd, flags, axis, not forward))
 
 
-@pytest.mark.parametrize("cost_shift,code_shift", [(1, 3), (2, 1), (3, 2)])
+@pytest.mark.parametrize("cost_shift,flag_shift", [(1, 3), (2, 1), (3, 2)])
 @pytest.mark.parametrize("axis,forward",
                          [("x", True), ("x", False), ("y", True), ("y", False)])
-def test_scanline_misaligned_inputs(dev, cost_shift, code_shift, axis,
+def test_scanline_misaligned_inputs(dev, cost_shift, flag_shift, axis,
                                     forward):
     """B2 on contiguous views that start 4 to 12 bytes (cost) and 1 to 3
-    bytes (code) past a 16-byte boundary: cost rows move in 4-byte grains
-    and code windows follow the code's own alignment."""
-    cost, code, flags = _scan_inputs(dev, "pad_across_chunk", axis, True)
+    bytes (flag maps) past a 16-byte boundary: cost rows move in 4-byte
+    grains and flag windows follow the maps' own alignment."""
+    cost, d1, rd, flags = _scan_inputs(dev, "pad_across_chunk", axis, True)
+    d, h, w = cost.shape
     n = cost.numel()
     cost_v = torch.empty(n + cost_shift, device=dev)[cost_shift:]
-    code_v = torch.empty(n + code_shift, dtype=torch.uint8,
-                         device=dev)[code_shift:]
     cost_v = cost_v.view(cost.shape).copy_(cost)
-    code_v = code_v.view(code.shape).copy_(code)
-    args = (cost_v, code_v, flags, 1.0, 3.0, axis, not forward)
-    _assert_bitwise(scanline.scanline_pass(*args),
-                    scanline.scanline_pass_plain(*args))
+    maps = []
+    for m in (d1, rd):
+        v = torch.empty(m.numel() + flag_shift, dtype=torch.bool,
+                        device=dev)[flag_shift:]
+        maps.append(v.view(m.shape).copy_(m >= SCAN_TSO))
+    geometry = scanline.scanline_geometry(d, w if axis == "x" else h,
+                                          h if axis == "x" else w, axis)
+    _assert_bitwise(
+        scanline.launch_pass(cost_v, *maps, flags, 1.0, 3.0, axis,
+                             not forward, 0, 0, w, geometry),
+        _scan_plain(cost, d1, rd, flags, axis, not forward))
 
 
 @pytest.mark.parametrize("d", [3, 64, 256])

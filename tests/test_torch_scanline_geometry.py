@@ -24,8 +24,8 @@ def test_geometry_fits_and_covers(d, axis):
     assert _pow2(pb) and pb <= 8 and _pow2(k)
     assert 2 <= stages <= MAX_STAGES
     assert smem <= SMEM_LIMIT
-    inner, outer, cost_ds, grain, groups, code_ds, slot = scanline_layout(
-        d, pb, k, axis)
+    inner, outer, cost_ds, grain, groups, right_groups, slot = (
+        scanline_layout(d, pb, k, axis))
     assert smem == stages * slot and slot % 16 == 0
     assert (inner, outer) == ((k, pb) if axis == "x" else (pb, k))
     # every cost cell the kernel indexes, (d, o, r) at d * cost_ds +
@@ -39,17 +39,16 @@ def test_geometry_fits_and_covers(d, axis):
     # rows start on 8 bytes (8-byte grains) and d-planes are an odd
     # number of 8-byte units apart
     assert cost_ds % 8 == 0 and cost_ds // 8 % 2 == 1
-    # code byte (d, o, r) at offset off < grain of its row's window: inside
-    # its own row and the code tile
-    dd, oo, off, rr = np.meshgrid(np.arange(d), np.arange(outer),
-                                  np.arange(grain), np.arange(inner),
-                                  indexing="ij")
-    row = dd * code_ds + oo * groups * grain
+    # left flag (o, r) at offset off < grain of its row's window: inside
+    # its own row; a right row's inner + D - 1 columns at any offset in
+    # its first 16-byte grain fit its grains
+    oo, off, rr = np.meshgrid(np.arange(outer), np.arange(grain),
+                              np.arange(inner), indexing="ij")
     assert (off + rr < groups * grain).all()
-    assert (row + off + rr).max() < d * code_ds
-    assert code_ds >= outer * groups * grain and code_ds // grain % 2 == 1
-    code_bytes = -(-d * code_ds // 16) * 16
-    assert slot == cost_bytes + code_bytes + -(-4 * k // 16) * 16
+    assert 15 + inner + d - 1 <= right_groups * 16
+    left_bytes = -(-outer * groups * grain // 16) * 16
+    assert slot == (cost_bytes + left_bytes + outer * right_groups * 16
+                    + -(-4 * k // 16) * 16)
 
 
 def test_geometry_at_cone_size():
@@ -58,6 +57,18 @@ def test_geometry_at_cone_size():
     passes, 64 steps ahead either way."""
     assert scanline_geometry(64, W, H, "x")[:3] == (4, 32, 3)
     assert scanline_geometry(64, H, W, "y")[:3] == (4, 16, 5)
+
+
+@pytest.mark.parametrize("d,s,p,axis,want", [
+    # KITTI (D 256 at 1242x375): a third ring slot on both axes
+    (256, 1242, 375, "x", (4, 16, 3)), (256, 375, 1242, "y", (4, 16, 3)),
+    # Middlebury 2014 full size at D 640, a rank's 497-row slab (x) and a
+    # 658-column slab (y): 8-step chunks (32-byte rows) in two slots,
+    # where a code tile left the x pass 1-step chunks
+    (640, 2632, 497, "x", (4, 8, 2)), (640, 1988, 658, "y", (4, 8, 2)),
+])
+def test_geometry_at_large_d(d, s, p, axis, want):
+    assert scanline_geometry(d, s, p, axis)[:3] == want
 
 
 @pytest.mark.parametrize("s,p", [(1, 1), (7, 5), (33, 1), (450, 5)])

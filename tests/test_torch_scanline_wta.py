@@ -96,18 +96,21 @@ def test_scanline_flags_pad_and_seed(scene):
     d, h, w = vol.shape
     valid = np.ones(w, bool)
     valid[:3] = valid[-2:] = False
-    code = np.random.default_rng(5).integers(0, 3, size=vol.shape,
-                                             dtype=np.uint8)
+    rng = np.random.default_rng(5)
+    d1, rd = (torch.as_tensor(rng.integers(0, 30, (h, w), np.int32))
+              for _ in range(2))
+    opts = ADCensusOptions(**OPTS)
+    code = torch_scan.code_volume(d1, rd, opts, w, 0).numpy()
     flags = torch_scan._scan_flags(w, torch.as_tensor(valid))
     assert flags.tolist()[:5] == [0, 0, 0, 1, 2]
     np.testing.assert_array_equal(
         flags.numpy(), np.asarray(jax_scan._scan_flags(w, jnp.asarray(valid)))
     )
     ours = torch_scan_op.scanline_pass(
-        torch.as_tensor(vol), torch.as_tensor(code), flags, 1.0, 3.0, "x",
+        torch.as_tensor(vol), d1, rd, flags, opts.so_tso, 1.0, 3.0, "x",
         True,
     )
-    # the JAX scan on the same (S, P, D) layout and flags
+    # the JAX scan on the same (S, P, D) layout, codes and flags
     p1, p2 = jax_scan._decode_penalties(jnp.asarray(code), JaxOptions())
     perm = (2, 1, 0)
     ref = jax_scan.scanline_pass_scan(
