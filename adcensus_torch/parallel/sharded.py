@@ -4,27 +4,31 @@ Port of ``adcensus_tpu/parallel/sharded.py``. JAX runs the per-shard body
 under ``shard_map``; here each rank is one process with one device and
 runs the same body SPMD, its collectives ``torch.distributed`` calls on
 the mesh's ``tile`` (or ``data``) process group. The cost volume is
-sharded over image rows on ``tile``, and pairs over ``data``:
+sharded over image rows on ``tile``, and pairs over ``data``.
+
+This module holds what exists because of sharding: the collectives, the
+slab geometry (``_Shard``, padding), the census, arms, support counts and
+color distances built across ranks, and the reshards. The stages run the one-card path's own code on the rank's row
+slab (``_Shard`` is a ``stages/slab.py:Slab``):
 
 * census, arms, support counts and the scanline's color distances are
   built cooperatively: each rank computes its own row (or column) slab
   from enough context rows, and all-gathers rebuild the full arrays (the
   census only in the disp layout: a row slab's cost reads its own rows'
   census alone);
-* cost init, the horizontal scanline passes, WTA and the LR check are
-  row-local;
-* cross aggregation (kernel B1) and region voting (kernel B3) exchange a
-  ``halo``-row halo with the row neighbours (``batch_isend_irecv``), then
-  run on the haloed slab; arms never cross the image border, so the
-  rank's own rows come out exactly as unsharded;
-* the vertical scanline passes (kernel B2) run between two
+* cost init, WTA and the LR check are row-local;
+* ``aggregate`` (kernel B1) and the voting of ``multistep_refine``
+  (kernel B3) run on the slab haloed by ``max_arm`` rows of the row
+  neighbours (``batch_isend_irecv``) and keep the own rows, exactly as
+  unsharded, since arms never cross the image border; interpolation
+  (kernel B4) and the in-place median (kernel M1) run on the gathered
+  map, the discontinuity adjustment (kernel M2) and the out-of-place
+  median on a 1-row halo;
+* the vertical ``scanline_pass``es (kernel B2) run between two
   ``all_to_all_single`` reshards, rows to columns and back;
-* interpolation (kernel B4) and the in-place median (kernel M1) run on
-  the all-gathered map, the discontinuity adjustment (kernel M2) and the
-  out-of-place median on a 1-row halo;
 * images are padded to multiples of the tile count: the scanline's
-  PAD/SEED step flags, the median's in-image mask and the padded
-  columns' costs keep the real pixels as in the unpadded ``match_core``.
+  PAD/SEED step flags, the slab's in-image mask and the padded columns'
+  costs keep the real pixels as in the unpadded ``match_core``.
 
 ``volume_axis="disp"`` shards cost init and aggregation over d-plane
 blocks instead (no halos), then one all-to-all reshards to rows for the
@@ -44,7 +48,8 @@ what each kind moves.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+import functools
 
 import torch
 import torch.distributed as dist
@@ -57,21 +62,14 @@ from adcensus_torch.config import (
     ADCensusOptions,
 )
 from adcensus_torch.ops.basic import check_cross_options, color_dist, shift2d
-from adcensus_torch.ops.cross_matmul import (
-    band_masks,
-    cross_pass_matmul,
-    vote_band_masks,
-)
-from adcensus_torch.ops.cross_sum import cross_pass
-from adcensus_torch.ops.region_vote import region_vote_stats
-from adcensus_torch.ops.scanline import scanline_pass
 from adcensus_torch.stages import aggregate as agg_stage
 from adcensus_torch.stages import arms as arms_stage
 from adcensus_torch.stages import cost as cost_stage
 from adcensus_torch.stages import refine as refine_stage
+from adcensus_torch.stages import scanline as scan_stage
 from adcensus_torch.stages import wta as wta_stage
 from adcensus_torch.stages.pipeline import validate_inputs
-from adcensus_torch.stages.scanline import _scan_flags
+from adcensus_torch.stages.slab import Slab
 from adcensus_torch.utils.profiling import (
     AGGREGATION, ARMS, COST, REFINE, SCANLINE, WTA, span,
 )
@@ -93,11 +91,13 @@ COMM_KINDS = ("broadcast", "halo", "all_gather", "all_to_all")
 comm_bytes = {kind: {"sent": 0, "received": 0} for kind in COMM_KINDS}
 
 
-class _Shard(NamedTuple):
+@dataclasses.dataclass
+class _Shard(Slab):
     """This rank's place in the tile group and the slab geometry: the
     (h, w) image is padded to (hp, wp); the rank owns rows [r0, r0 +
     h_local) and, between the vertical passes' reshards, columns [c0, c0
-    + w_local)."""
+    + w_local). As a ``Slab``, its own rows: halos from the row
+    neighbours, the map gathered over the tile group."""
     group: dist.ProcessGroup
     ranks: list
     n: int
@@ -110,7 +110,58 @@ class _Shard(NamedTuple):
     w_local: int
     r0: int
     c0: int
-    halo: int
+    max_arm: int
+    dev: torch.device
+
+    @property
+    def real_w(self) -> int:
+        return self.w
+
+    @functools.cached_property
+    def coords(self):
+        """(image rows of the own rows, padded columns)."""
+        return (self.r0 + torch.arange(self.h_local, device=self.dev),
+                torch.arange(self.wp, device=self.dev))
+
+    @functools.cached_property
+    def in_image(self) -> torch.Tensor:
+        """(h_local, wp): the own rows' pixels that lie in the image."""
+        rows, cols = self.coords
+        return (rows < self.h)[:, None] & (cols < self.w)[None]
+
+    def halo(self, x, rows, axis=0):
+        return _halo_rows(x, rows, axis, self)
+
+    def pad(self, x, rows):
+        return _pad_rows(x, rows, rows, False)
+
+    def own(self, x, rows, axis=0):
+        return x.narrow(axis, rows, self.h_local).contiguous()
+
+    def gather(self, x):
+        return _all_gather(x, 0, self.group)
+
+    def place(self, x):
+        return _pad_rows(x, self.r0, self.hp - self.r0 - self.h_local, False)
+
+    def scatter(self, full):
+        if tuple(full.shape) != (self.hp, self.wp):
+            full = _pad_hw(full, self.hp, self.wp, INVALID_FLOAT)
+        return full[self.r0 : self.r0 + self.h_local]
+
+    def crop(self, full):
+        return full[: self.h, : self.w]
+
+    def mask(self, x, fill):
+        if x.dtype == torch.bool:
+            return x & self.in_image
+        return torch.where(self.in_image, x, fill)
+
+    def interior(self, new, old):
+        rows, cols = self.coords
+        inside = ((rows > 0) & (rows < self.h - 1))[:, None] & (
+            (cols > 0) & (cols < self.w - 1))[None]
+        return torch.where(inside, new, old)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -241,7 +292,8 @@ def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int,
         return torch.cat(recv.unbind(0), dim=concat_axis)
 
 
-def _shard(mesh: DeviceMesh, h: int, w: int, opts: ADCensusOptions) -> _Shard:
+def _shard(mesh: DeviceMesh, h: int, w: int, opts: ADCensusOptions,
+           dev) -> _Shard:
     group = mesh.get_group("tile")
     n = dist.get_world_size(group)
     i = mesh.get_local_rank("tile")
@@ -250,15 +302,8 @@ def _shard(mesh: DeviceMesh, h: int, w: int, opts: ADCensusOptions) -> _Shard:
         group=group, ranks=dist.get_process_group_ranks(group), n=n, i=i,
         h=h, w=w, hp=hp, wp=wp, h_local=hp // n, w_local=wp // n,
         r0=i * (hp // n), c0=i * (wp // n),
-        halo=min(opts.cross_L1, MAX_ARM_LENGTH),
+        max_arm=min(opts.cross_L1, MAX_ARM_LENGTH), dev=dev,
     )
-
-
-def _row_valid(sh: _Shard, dev) -> torch.Tensor:
-    """(h_local, wp): the rank's own rows' pixels that lie in the image."""
-    gy = sh.r0 + torch.arange(sh.h_local, device=dev)
-    return (gy < sh.h)[:, None] & (torch.arange(sh.wp, device=dev)
-                                   < sh.w)[None]
 
 
 def _census_own(gray, sh: _Shard) -> torch.Tensor:
@@ -278,13 +323,12 @@ def _arms(left_p, opts: ADCensusOptions, sh: _Shard) -> torch.Tensor:
     slice: each rank builds its own rows from a ``halo``-row context slab
     (anchors outside the image keep arms 0), and an all-gather rebuilds
     the rest."""
-    halo, r0, h_local = sh.halo, sh.r0, sh.h_local
+    halo, r0, h_local = sh.max_arm, sh.r0, sh.h_local
     lslab = _pad_rows(left_p, halo, halo)[r0 : r0 + h_local + 2 * halo]
     arms_own = arms_stage.build_arms(
         lslab, opts, row_offset=r0 - halo, full_h=sh.h, full_w=sh.w
     )[halo : halo + h_local]
-    arms_own = torch.where(_row_valid(sh, left_p.device)[..., None],
-                           arms_own, 0)
+    arms_own = torch.where(sh.in_image[..., None], arms_own, 0)
     arms_full = _all_gather(arms_own.permute(2, 0, 1), 1, sh.group)
     return _pad_rows(arms_full.permute(1, 2, 0).contiguous(), halo, halo)
 
@@ -294,7 +338,7 @@ def _support(arms, sh: _Shard):
     float32, ``halo`` rows of 1 top and bottom like ``arms``: each rank
     counts its own rows from the haloed slab of the gathered arms, and an
     all-gather rebuilds the rest."""
-    halo = sh.halo
+    halo = sh.max_arm
     sup_h, sup_v = agg_stage.support_counts(
         arms[sh.r0 : sh.r0 + sh.h_local + 2 * halo], halo)
     own = slice(halo, halo + sh.h_local)
@@ -311,7 +355,7 @@ def _scan_dists(left_p, right_p, sh: _Shard) -> dict:
     at any column, are all-gathered to full width."""
     c0, w_local = sh.c0, sh.w_local
     dev = left_p.device
-    row_valid = _row_valid(sh, dev)
+    row_valid = sh.in_image
     col_valid = (torch.arange(sh.hp, device=dev) < sh.h)[:, None] & (
         c0 + torch.arange(w_local, device=dev) < sh.w)[None]
     own = slice(sh.r0, sh.r0 + sh.h_local)
@@ -334,34 +378,12 @@ def _scan_dists(left_p, right_p, sh: _Shard) -> dict:
     return dists
 
 
-def _aggregate(vol, arms, sup_h, sup_v, max_arm, cross_backend, keep=None):
-    """4 cross-aggregation iterations of ``vol`` against the slab's arms
-    and support counts (kernel B1, or band matrices built once). With
-    ``keep``, the rank's ``_Shard``, ``vol`` is the rank's own rows: each
-    iteration runs on them haloed by ``max_arm`` rows and keeps them."""
-    masks = (band_masks(arms, max_arm) if cross_backend == "matmul"
-             else None)
-    horizontal_first = True
-    for _ in range(4):
-        slab = vol if keep is None else _halo_rows(vol, max_arm, 1, keep)
-        args = (slab, arms, sup_h if horizontal_first else sup_v,
-                horizontal_first, max_arm)
-        if masks is None:
-            out = cross_pass(*args, normalize=True)
-        else:
-            out = cross_pass_matmul(*args, normalize=True, masks=masks)
-        vol = out if keep is None else out[
-            :, max_arm : max_arm + keep.h_local].contiguous()
-        horizontal_first = not horizontal_first
-    return vol
-
-
 def _pair_body(left, right, gray_l, gray_r, opts: ADCensusOptions,
                sh: _Shard, cross_backend: str) -> torch.Tensor:
     """One pair with the volume sharded over image rows end to end: this
     rank's (h_local, wp) rows of the disparity map. The cost of own rows
     reads own rows' census only, so the census is never gathered."""
-    r0, h_local, halo = sh.r0, sh.h_local, sh.halo
+    r0, h_local, halo = sh.r0, sh.h_local, sh.max_arm
     own = slice(r0, r0 + h_local)
     with span(COST):
         left_p = _pad_hw(left, sh.hp, sh.wp, 0)
@@ -377,8 +399,9 @@ def _pair_body(left, right, gray_l, gray_r, opts: ADCensusOptions,
         # arms and support carry `halo` rows on both sides, so the haloed
         # slab is rows [r0 - halo, r0 + h_local + halo)
         halo_rows = slice(r0, r0 + h_local + 2 * halo)
-        vol = _aggregate(vol, arms[halo_rows], sup_h[halo_rows],
-                         sup_v[halo_rows], halo, cross_backend, keep=sh)
+        vol = agg_stage.aggregate(
+            vol, arms[halo_rows], opts, cross_backend=cross_backend,
+            support=(sup_h[halo_rows], sup_v[halo_rows]), slab=sh)
     return _tail_rows(vol, left_p, right_p, arms, opts, sh, cross_backend)
 
 
@@ -402,21 +425,12 @@ def _pair_body_disp(left, right, gray_l, gray_r, opts: ADCensusOptions,
         arms = _arms(left_p, opts, sh)
     with span(AGGREGATION):
         sup_h, sup_v = _support(arms, sh)
-        image = slice(sh.halo, sh.halo + sh.hp)
-        vol = _aggregate(vol, arms[image], sup_h[image], sup_v[image],
-                         sh.halo, cross_backend)
+        image = slice(sh.max_arm, sh.max_arm + sh.hp)
+        vol = agg_stage.aggregate(vol, arms[image], opts,
+                                  cross_backend=cross_backend,
+                                  support=(sup_h[image], sup_v[image]))
         vol = _all_to_all(vol, 1, 0, sh.group)  # (D, h_local, wp)
     return _tail_rows(vol, left_p, right_p, arms, opts, sh, cross_backend)
-
-
-def _scan(vol, dists, opts, axis, forward, valid, col0, real_w):
-    """One scanline pass (kernel B2) with PAD steps where ``valid`` (in
-    array order) is False; ``dists`` = (d1, rd) give the penalty codes of
-    volume columns from column ``col0`` of an image ``real_w`` wide."""
-    flags = _scan_flags(valid.shape[0], valid if forward else valid.flip(0))
-    return scanline_pass(vol, *dists, flags, opts.so_tso, opts.so_p1,
-                         opts.so_p2, axis, not forward, opts.min_disparity,
-                         col0, real_w)
 
 
 def _tail_rows(vol, left_p, right_p, arms, opts: ADCensusOptions,
@@ -424,20 +438,20 @@ def _tail_rows(vol, left_p, right_p, arms, opts: ADCensusOptions,
     """Scanline, WTA and refinement of a row-sharded (D, h_local, wp)
     volume, given the padded images and the haloed arms of ``_arms``:
     this rank's (h_local, wp) disparity rows, +inf outside the image."""
-    h, w, hp = sh.h, sh.w, sh.hp
-    dev = vol.device
-    cols = torch.arange(sh.wp, device=dev)
+    w, hp = sh.w, sh.hp
+    cols = sh.coords[1]
 
     # ---- scanline: x passes on own rows, y passes on own columns -------
     with span(SCANLINE):
         dists = _scan_dists(left_p, right_p, sh)
         for fwd in (True, False):
-            vol = _scan(vol, dists[("x", fwd)], opts, "x", fwd, cols < w, 0,
-                        w)
+            vol = scan_stage.scanline_pass(vol, dists[("x", fwd)], opts, "x",
+                                           fwd, cols < w, 0, w)
         vol = _all_to_all(vol, 2, 1, sh.group)  # (D, hp, w_local)
         for fwd in (True, False):
-            vol = _scan(vol, dists[("y", fwd)], opts, "y", fwd,
-                        torch.arange(hp, device=dev) < h, sh.c0, w)
+            vol = scan_stage.scanline_pass(
+                vol, dists[("y", fwd)], opts, "y", fwd,
+                torch.arange(hp, device=sh.dev) < sh.h, sh.c0, w)
         vol = _all_to_all(vol, 1, 2, sh.group)  # (D, h_local, wp)
 
     # ---- WTA: pad columns behave like out-of-image ----------------------
@@ -446,84 +460,11 @@ def _tail_rows(vol, left_p, right_p, arms, opts: ADCensusOptions,
         disp_l = wta_stage.wta_left(vol, opts)
         disp_r = wta_stage.wta_right(vol, opts)
     with span(REFINE):
-        return _refine_rows(disp_l, disp_r, vol, left_p, arms, opts, sh,
-                            cross_backend)
-
-
-def _refine_rows(disp_l, disp_r, vol, left_p, arms, opts: ADCensusOptions,
-                 sh: _Shard, cross_backend: str) -> torch.Tensor:
-    """The refinement of ``_tail_rows``: this rank's disparity rows."""
-    h, w, hp, wp, halo = sh.h, sh.w, sh.hp, sh.wp, sh.halo
-    r0, h_local = sh.r0, sh.h_local
-    dev = vol.device
-    cols = torch.arange(wp, device=dev)
-
-    # ---- refinement, gated as multistep_refine gates it -----------------
-    row_ids = r0 + torch.arange(h_local, device=dev)
-    in_image = (row_ids < h)[:, None] & (cols < w)[None]
-    disp = disp_l
-    occl = torch.zeros_like(in_image)
-    mism = torch.zeros_like(in_image)
-    if opts.do_lr_check:
-        disp, occl, mism = refine_stage.outlier_detection(
-            disp_l, disp_r, opts, real_w=w
-        )
-    disp = torch.where(in_image, disp, INVALID_FLOAT)
-    occl = occl & in_image
-    mism = mism & in_image
-
-    if opts.do_filling:
-        # voting on the haloed slab, so that regions crossing the slab's
-        # edge see their whole support; no target in the halo rows
-        arms = arms[r0 : r0 + h_local + 2 * halo]
-        masks = (vote_band_masks(arms, halo) if cross_backend == "matmul"
-                 else None)
-        own = slice(halo, halo + h_local)
-        for _ in range(5):
-            for phase_mask in (mism, occl):
-                target = phase_mask & ~torch.isfinite(disp)
-                di, valid = refine_stage.vote_indices(
-                    _halo_rows(disp, halo, 0, sh), opts)
-                best, max_ht, count = region_vote_stats(
-                    di, valid, arms, opts.disp_range, halo, cross_backend,
-                    masks, target=_pad_rows(target, halo, halo, False),
-                )
-                disp = refine_stage.apply_vote_fill(
-                    disp, target, best[own], max_ht[own], count[own], opts)
-
-        # interpolation on the gathered map, at own rows' targets only
-        def interp_phase(disp, target, is_mismatch):
-            full = _all_gather(disp, 0, sh.group)
-            fills = refine_stage.interpolation_fills(
-                full, left_p, opts, is_mismatch,
-                target=_pad_rows(target, r0, hp - r0 - h_local, False),
-            )
-            return torch.where(target, fills[r0 : r0 + h_local], disp)
-
-        disp = interp_phase(disp, mism & ~torch.isfinite(disp), True)
-        disp = interp_phase(disp, occl & ~torch.isfinite(disp), False)
-
-    if opts.do_discontinuity_adjustment:
-        # a 1-row halo of map and volume; the image's border rows and
-        # columns keep their values, as edge_detect leaves them unsharded
-        adj = refine_stage.depth_discontinuity_adjustment(
-            _halo_rows(disp, 1, 0, sh), _halo_rows(vol, 1, 1, sh), opts,
-        )[1 : 1 + h_local]
-        interior = ((row_ids > 0) & (row_ids < h - 1))[:, None] & (
-            (cols > 0) & (cols < w - 1))[None]
-        disp = torch.where(interior, adj, disp)
-
-    if opts.exact_median:
-        # the in-place median is a raster-order wavefront over the whole
-        # map: run it on the gathered map cropped to the image
-        full = _all_gather(disp, 0, sh.group)[:h, :w]
-        med = refine_stage.median_filter_3x3_inplace(full)
-        disp = _pad_hw(med, hp, wp, INVALID_FLOAT)[r0 : r0 + h_local]
-    else:
-        disp = refine_stage.median_filter_3x3(
-            _halo_rows(disp, 1, 0, sh), _halo_rows(in_image, 1, 0, sh),
-        )[1 : 1 + h_local]
-    return torch.where(in_image, disp, INVALID_FLOAT)
+        return refine_stage.multistep_refine(
+            disp_l, disp_r, left_p, vol,
+            arms[sh.r0 : sh.r0 + sh.h_local + 2 * sh.max_arm], opts,
+            cross_backend, sh,
+        )["final"]
 
 
 def _body(volume_axis: str, opts: ADCensusOptions, n_tile: int,
@@ -564,7 +505,7 @@ def match_sharded(
     ``cross_backend`` is "roll" (kernels B1 and B3) or "matmul" (band
     matrices, built on the haloed slabs)."""
     validate_inputs(left, right, opts)
-    sh = _shard(mesh, left.shape[0], left.shape[1], opts)
+    sh = _shard(mesh, left.shape[0], left.shape[1], opts, left.device)
     body = _body(volume_axis, opts, sh.n, cross_backend)
     own = body(left, right, gray_l, gray_r, opts, sh, cross_backend)
     return _all_gather(own, 0, sh.group)[: sh.h, : sh.w].contiguous()

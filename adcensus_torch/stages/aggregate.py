@@ -14,6 +14,10 @@ count (cross_aggregator.cpp:89-118, 327-394). Backends:
 
 ``agg_impl="skip"`` returns the cost unchanged (the JAX package's
 ``ADC_AGG_IMPL=skip`` ablation).
+
+The sharded layer runs the same loop on its row slabs (``stages/slab.py``:
+each iteration on the volume haloed by ``max_arm`` rows), with support
+counts it built itself; ``banded`` and ``skip`` are one-card routes.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from adcensus_torch.ops.band_mm import aggregate_banded, banded_fits
 from adcensus_torch.ops.basic import check_cross_options
 from adcensus_torch.ops.cross_matmul import band_masks, cross_pass_matmul
 from adcensus_torch.ops.cross_sum import cross_pass
+from adcensus_torch.stages.slab import WHOLE, Slab
 
 
 def _arm_sum(
@@ -68,17 +73,22 @@ def aggregate(
     num_iters: int = 4,
     cross_backend: str = "roll",
     agg_impl: Optional[str] = None,
+    support: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    slab: Slab = WHOLE,
 ) -> torch.Tensor:
     """Aggregate a (D, H, W) cost volume over cross support regions:
     ``num_iters`` iterations (the reference calls Aggregate(4),
     ADCensusStereo.cpp:164) alternating horizontal-first and
     vertical-first, each normalized by the matching support count.
-    Routes as the JAX ``aggregate`` does (see the module docstring)."""
+    Routes as the JAX ``aggregate`` does (see the module docstring).
+    ``support``: float32 (sup_h, sup_v) of ``arms`` (None: counted here);
+    on a ``slab`` both cover the volume's ``max_arm`` halo."""
     check_cross_options(cross_backend, agg_impl)
     max_arm = min(opts.cross_L1, MAX_ARM_LENGTH)
-    sup_h, sup_v = support_counts(arms, max_arm)
-    sup_h = sup_h.to(torch.float32)
-    sup_v = sup_v.to(torch.float32)
+    if support is None:
+        sup_h, sup_v = support_counts(arms, max_arm)
+        support = (sup_h.to(torch.float32), sup_v.to(torch.float32))
+    sup_h, sup_v = support
     if agg_impl == "skip":
         return cost
     if cross_backend == "matmul" and agg_impl == "banded":
@@ -88,11 +98,13 @@ def aggregate(
     masks = band_masks(arms, max_arm) if cross_backend == "matmul" else None
     horizontal_first = True
     for _ in range(num_iters):
-        args = (cost, arms, sup_h if horizontal_first else sup_v,
-                horizontal_first, max_arm)
+        args = (slab.halo(cost, max_arm, 1), arms,
+                sup_h if horizontal_first else sup_v, horizontal_first,
+                max_arm)
         if masks is None:
-            cost = cross_pass(*args, normalize=True)
+            out = cross_pass(*args, normalize=True)
         else:
-            cost = cross_pass_matmul(*args, normalize=True, masks=masks)
+            out = cross_pass_matmul(*args, normalize=True, masks=masks)
+        cost = slab.own(out, max_arm, 1)
         horizontal_first = not horizontal_first
     return cost

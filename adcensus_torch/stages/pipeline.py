@@ -346,11 +346,10 @@ def match_hetero_device(
     return tuple(out.clone() for out in entry.outputs)
 
 
-def _match_stacks(stacks, opts, device, group, cross_backend, agg_impl,
-                  branches: bool = True) -> torch.Tensor:
+def _match_stacks(stacks, opts, device, group, cross_backend,
+                  agg_impl) -> torch.Tensor:
     """The batched pipelines on ``stacks``: (lefts, rights), or with
-    (grays_l, grays_r). ``branches=False`` captures each group's pairs on
-    one stream (``graphs.captured``)."""
+    (grays_l, grays_r)."""
     opts = opts or ADCensusOptions()
     check_cross_options(cross_backend, agg_impl)
     _validate_stacks(stacks, opts)
@@ -390,7 +389,7 @@ def _match_stacks(stacks, opts, device, group, cross_backend, agg_impl,
 
     entry = graphs.captured(
         ("batched", len(stacks), g, h, w, opts, cross_backend, agg_impl),
-        dev, buffers, run, g, (0,), branches,
+        dev, buffers, run, g, (0,),
     )
     out = torch.empty((b, h, w), dtype=torch.float32, device=dev)
     for k in range(0, b, g):

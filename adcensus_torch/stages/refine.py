@@ -16,6 +16,12 @@ Port of ``adcensus_tpu/stages/refine.py`` (multistep_refiner.cpp:60-87):
 * The final 3x3 median is out of place, or with ``exact_median`` the
   reference's in-place raster-order median (kernel M1,
   ``ops/median.py``).
+
+``multistep_refine`` is the one chain, gated by the options, for one card
+and the sharded layer alike. On a ``slab`` (``stages/slab.py``) voting
+runs on a ``max_arm`` halo without targets in it, interpolation fills
+from the gathered map, the adjustment and the out-of-place median run on
+a 1-row halo, the in-place median on the gathered map.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from adcensus_torch.ops.dda import dda, edge_detect  # noqa: F401
 from adcensus_torch.ops.interp import ray_interp
 from adcensus_torch.ops.median import median_inplace
 from adcensus_torch.ops.region_vote import region_vote_stats
+from adcensus_torch.stages.slab import WHOLE, Slab
 
 
 def _gather_cols(fields, col, ok, defaults):
@@ -148,16 +155,20 @@ def region_vote_phase(
     opts: ADCensusOptions,
     cross_backend: str = "roll",
     masks=None,
+    slab: Slab = WHOLE,
 ) -> torch.Tensor:
     """One voting phase. It runs whatever its target, so that nothing is
     read back to the host: with an empty target it returns ``disp`` bit
     for bit, and kernel B3 visits the target pixels only. ``masks`` are
-    the matmul backend's prebuilt band matrices."""
-    di, valid = vote_indices(disp, opts)
-    best, max_ht, count = region_vote_stats(
-        di, valid, arms, opts.disp_range, min(opts.cross_L1, MAX_ARM_LENGTH),
-        cross_backend, masks, target=target,
+    the matmul backend's prebuilt band matrices. On a ``slab``, ``arms``
+    covers the ``max_arm`` halo the histograms run on."""
+    max_arm = min(opts.cross_L1, MAX_ARM_LENGTH)
+    di, valid = vote_indices(slab.halo(disp, max_arm), opts)
+    stats = region_vote_stats(
+        di, valid, arms, opts.disp_range, max_arm, cross_backend, masks,
+        target=slab.pad(target, max_arm),
     )
+    best, max_ht, count = (slab.own(s, max_arm) for s in stats)
     return apply_vote_fill(disp, target, best, max_ht, count, opts)
 
 
@@ -169,6 +180,7 @@ def iterative_region_voting(
     opts: ADCensusOptions,
     num_iters: int = 5,
     cross_backend: str = "roll",
+    slab: Slab = WHOLE,
 ) -> torch.Tensor:
     """5 iterations x (mismatches, then occlusions) of dense histogram
     voting (multistep_refiner.cpp:153-227). The matmul backend's band
@@ -182,7 +194,7 @@ def iterative_region_voting(
         for phase_mask in (mismatch, occlusion):
             target = phase_mask & ~torch.isfinite(disp)
             disp = region_vote_phase(disp, arms, target, opts,
-                                     cross_backend, masks)
+                                     cross_backend, masks, slab)
     return disp
 
 
@@ -246,28 +258,34 @@ def proper_interpolation(
     occlusion: torch.Tensor,
     mismatch: torch.Tensor,
     opts: ADCensusOptions,
+    slab: Slab = WHOLE,
 ) -> torch.Tensor:
-    """Both phases over the full map: mismatch fills are written before
-    the occlusion search runs, as in the reference."""
-    mism_target = mismatch & ~torch.isfinite(disp)
-    fill_m = interpolation_fills(disp, left, opts, True, target=mism_target)
-    disp = torch.where(mism_target, fill_m, disp)
-    occl_target = occlusion & ~torch.isfinite(disp)
-    fill_o = interpolation_fills(disp, left, opts, False, target=occl_target)
-    return torch.where(occl_target, fill_o, disp)
+    """Both phases: mismatch fills are written before the occlusion
+    search runs, as in the reference. Each fills the own rows' targets
+    from ``slab.gather`` of the map; ``left`` is the whole image."""
+    for is_mismatch, phase_mask in ((True, mismatch), (False, occlusion)):
+        target = phase_mask & ~torch.isfinite(disp)
+        fill = interpolation_fills(slab.gather(disp), left, opts,
+                                   is_mismatch, target=slab.place(target))
+        disp = torch.where(target, slab.scatter(fill), disp)
+    return disp
 
 
 def depth_discontinuity_adjustment(
     disp: torch.Tensor,
     cost: torch.Tensor,
     opts: ADCensusOptions,
+    slab: Slab = WHOLE,
 ) -> torch.Tensor:
     """Edge-pixel disparity adjustment (multistep_refiner.cpp:307-352),
     exact: kernel M2 (``ops/dda.py``), the Sobel mask of ``disp``
     (``edge_detect``) included. The (D, H, W) ``cost`` is indexed by
     lround(d) without subtracting ``opts.min_disparity``, as the
-    reference does."""
-    return dda(disp.contiguous(), cost.contiguous())
+    reference does. On a slab it runs on a 1-row halo of map and volume;
+    the image's border keeps its values, as ``edge_detect`` leaves them."""
+    adj = dda(slab.halo(disp, 1).contiguous(),
+              slab.halo(cost, 1, 1).contiguous())
+    return slab.interior(slab.own(adj, 1), disp)
 
 
 def median_filter_3x3_inplace(disp: torch.Tensor) -> torch.Tensor:
@@ -330,27 +348,39 @@ def multistep_refine(
     arms: torch.Tensor,
     opts: ADCensusOptions,
     cross_backend: str = "roll",
+    slab: Slab = WHOLE,
 ) -> Dict[str, torch.Tensor]:
     """Full refinement chain (multistep_refiner.cpp:60-87);
-    ``cross_backend`` picks the voting histograms' backend."""
+    ``cross_backend`` picks the voting histograms' backend. On a
+    ``slab`` the maps and ``cost`` hold the own rows, ``left`` is the
+    whole image and ``arms`` covers the rows of a ``max_arm`` halo; the
+    final map reads +inf outside the image."""
     out: Dict[str, torch.Tensor] = {}
     disp = disp_left
     occl = torch.zeros_like(disp, dtype=torch.bool)
     mism = torch.zeros_like(disp, dtype=torch.bool)
     if opts.do_lr_check:
-        disp, occl, mism = outlier_detection(disp, disp_right, opts)
+        disp, occl, mism = outlier_detection(disp, disp_right, opts,
+                                             real_w=slab.real_w)
         out["after_lr_check"] = disp
+    disp = slab.mask(disp, INVALID_FLOAT)
+    occl = slab.mask(occl, False)
+    mism = slab.mask(mism, False)
     if opts.do_filling:
         disp = iterative_region_voting(disp, arms, occl, mism, opts,
-                                       cross_backend=cross_backend)
+                                       cross_backend=cross_backend,
+                                       slab=slab)
         out["after_voting"] = disp
-        disp = proper_interpolation(disp, left, occl, mism, opts)
+        disp = proper_interpolation(disp, left, occl, mism, opts, slab)
         out["after_interpolation"] = disp
     if opts.do_discontinuity_adjustment:
-        disp = depth_discontinuity_adjustment(disp, cost, opts)
+        disp = depth_discontinuity_adjustment(disp, cost, opts, slab)
         out["after_discontinuity"] = disp
     if opts.exact_median:
-        out["final"] = median_filter_3x3_inplace(disp)
+        final = slab.scatter(median_filter_3x3_inplace(
+            slab.crop(slab.gather(disp))))
     else:
-        out["final"] = median_filter_3x3(disp)
+        final = slab.own(median_filter_3x3(
+            slab.halo(disp, 1), slab.halo(slab.in_image, 1)), 1)
+    out["final"] = slab.mask(final, INVALID_FLOAT)
     return out

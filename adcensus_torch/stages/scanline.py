@@ -9,6 +9,8 @@ with the reference's sticky d2 lookup (``ops/scanline.py:penalty_codes``).
 
 The JAX package pads W to the TPU's 128-lane tile before the passes; the
 CUDA kernel takes strides, so the port runs at the image's own width.
+``scanline_pass`` takes the distances and the steps in the image, so the
+sharded layer runs it on its padded row and column slabs.
 """
 from __future__ import annotations
 
@@ -59,8 +61,8 @@ def code_volume(
     col0: int,
 ) -> torch.Tensor:
     """(D, rows, out_w) uint8 penalty codes of columns [col0, col0 + out_w)
-    of an image ``real_w`` wide (``ops/scanline.py:penalty_codes``). The
-    sharded pipeline's ``_code_volume``."""
+    of an image ``real_w`` wide (``ops/scanline.py:penalty_codes``): what
+    B2 derives in the kernel, built as a volume for the tests."""
     return penalty_codes(d1, rd, opts.disp_range, opts.so_tso,
                          opts.min_disparity, col0, real_w)
 
@@ -83,19 +85,28 @@ def _scan_flags(
 
 def scanline_pass(
     cost: torch.Tensor,
-    left: torch.Tensor,
-    right: torch.Tensor,
+    dists: tuple,
     opts: ADCensusOptions,
     axis: str,
     forward: bool,
+    valid: Optional[torch.Tensor] = None,
+    col0: int = 0,
+    real_w: Optional[int] = None,
 ) -> torch.Tensor:
-    """One directional pass over a (D, H, W) volume."""
-    d1, rd = distances(left, right, axis, forward)
+    """One directional pass over a (D, H, W) volume, given the pass's
+    (d1, rd) color distances (``distances``). ``valid``: the (S,) bool
+    steps along ``axis`` that lie in the image, in array order (None:
+    every step); the others are PAD steps. The volume's column 0 is
+    column ``col0`` of an image ``real_w`` wide (default: the volume's
+    width), as the sharded layer's padded and column slabs have it."""
     s_len = cost.shape[2] if axis == "x" else cost.shape[1]
-    flags = _scan_flags(s_len, device=cost.device)
+    if valid is not None and not forward:
+        valid = valid.flip(0)
+    flags = _scan_flags(s_len, valid, device=cost.device)
     return scanline_kernel_pass(
-        cost, d1, rd, flags, opts.so_tso, opts.so_p1, opts.so_p2, axis,
-        reverse=not forward, min_disparity=opts.min_disparity,
+        cost, *dists, flags, opts.so_tso, opts.so_p1, opts.so_p2, axis,
+        reverse=not forward, min_disparity=opts.min_disparity, col0=col0,
+        real_w=real_w,
     )
 
 
@@ -108,5 +119,6 @@ def scanline_optimize(
     """Four sequential passes, L->R, R->L, U->D, D->U, each consuming the
     previous pass's output (scanline_optimizer.cpp:53-60)."""
     for axis, fwd in (("x", True), ("x", False), ("y", True), ("y", False)):
-        cost = scanline_pass(cost, left, right, opts, axis, fwd)
+        cost = scanline_pass(cost, distances(left, right, axis, fwd), opts,
+                             axis, fwd)
     return cost

@@ -64,28 +64,24 @@ def captured(
     run_branch: Callable[[int, object], torch.Tensor],
     n_branches: int,
     warm_up: Sequence[int],
-    branches: bool = True,
 ) -> GroupGraph:
     """The graph of ``key`` on ``device``, from the cache or captured now.
 
     On a miss, ``make_buffers()`` returns (inputs, outputs), static device
     buffers; branch i of the graph writes ``run_branch(i, inputs)`` into
     ``outputs[i]``. ``warm_up`` lists the branches to run eagerly first,
-    one of each distinct shape and options. ``branches=False`` captures
-    the pairs one after another on the capture stream instead: the
-    yardstick of what the branches bring."""
+    one of each distinct shape and options."""
     global captures
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
-    full_key = (key, device, branches)
+    full_key = (key, device)
     entry = _cache.get(full_key)
     if entry is not None:
         _cache.move_to_end(full_key)
         return entry
     while len(_cache) >= CACHE_SIZE:  # free a pool before making one
         _cache.popitem(last=False)
-    entry = _capture(device, make_buffers, run_branch, n_branches, warm_up,
-                     branches)
+    entry = _capture(device, make_buffers, run_branch, n_branches, warm_up)
     _cache[full_key] = entry
     captures += 1
     return entry
@@ -103,7 +99,7 @@ def clear() -> None:
         torch.cuda.empty_cache()
 
 
-def _capture(device, make_buffers, run_branch, n, warm_up, branches):
+def _capture(device, make_buffers, run_branch, n, warm_up):
     _build.build()
     inputs, outputs = make_buffers()
     stream = torch.cuda.Stream(device)
@@ -118,17 +114,13 @@ def _capture(device, make_buffers, run_branch, n, warm_up, branches):
     with torch.cuda.stream(torch.cuda.current_stream(device)):
         try:
             with torch.cuda.graph(graph, stream=stream):
-                if not branches:
-                    for i in range(n):
+                forks = [torch.cuda.Stream(device) for _ in range(n)]
+                for i, fork in enumerate(forks):
+                    fork.wait_stream(stream)
+                    with torch.cuda.stream(fork):
                         outputs[i].copy_(run_branch(i, inputs))
-                else:
-                    forks = [torch.cuda.Stream(device) for _ in range(n)]
-                    for i, fork in enumerate(forks):
-                        fork.wait_stream(stream)
-                        with torch.cuda.stream(fork):
-                            outputs[i].copy_(run_branch(i, inputs))
-                    for fork in forks:
-                        stream.wait_stream(fork)
+                for fork in forks:
+                    stream.wait_stream(fork)
         except RuntimeError as err:
             raise RuntimeError(
                 f"CUDA graph capture failed{_stage_of(err)}: {err}"

@@ -41,28 +41,25 @@ imports nothing of JAX. Phases, each raising on failure:
    backend), with the launch counts of one match, the match time, bitwise
    equality with the plain-version pipeline on the same card, and bad-2.0
    against the scene's ground truth;
-5. stages: where one main-path match's time goes, stage by stage (CUDA
-   events), and the device's busy time, its heaviest kernels and the time
-   and calls of each hand-written kernel (torch.profiler);
-6. backends: the same match with ``cross_backend="matmul"``, dense
+5. backends: the same match with ``cross_backend="matmul"``, dense
    (``[matmul]``) and with kernel B5 (``[banded]``), each held as in
-   phase 4, with its stages and profile as in phase 5, and compared with
-   the main path's disparity; and ``[flags]``: the roll backend with
-   ``exact_median`` and ``do_discontinuity_adjustment`` on (one launch of
-   M1 and of M2 a match), held and profiled the same way;
-7. batched: ``match_batched_device`` on 8 distinct seeded Cone-size pairs
+   phase 4 and compared with the main path's disparity; and ``[flags]``:
+   the roll backend with ``exact_median`` and
+   ``do_discontinuity_adjustment`` on (one launch of M1 and of M2 a
+   match), held the same way;
+6. batched: ``match_batched_device`` on 8 distinct seeded Cone-size pairs
    (seeds 0 to 7) on the roll and banded paths, each group a CUDA graph
    replay: the group the budget picks, the first call's peak allocated
    memory, the memory the graph holds against ``pipeline.pair_bytes``,
    the launches counted at capture (g times one match's), each output
    bitwise equal to ``match_device`` on its pair, host-clock ms a pair
    against a loop of ``match_device``, the device's busy time in a
-   profiled call, the same group captured on one stream (roll), and a
-   call with group 4 (two replays); and the same on the [flags] path;
-8. hetero: ``match_hetero_device`` on a Wood2-size pair (555x653, D=128)
-   and the Cone-size pair in one graph, held as in phase 7, and the
+   profiled call, and a call with group 4 (two replays); and the same on
+   the [flags] path;
+7. hetero: ``match_hetero_device`` on a Wood2-size pair (555x653, D=128)
+   and the Cone-size pair in one graph, held as in phase 6, and the
    call's ms against two ``match_device`` calls;
-9. cli: the Cone-size pair written as PNGs under ``build/cli/`` with the
+8. cli: the Cone-size pair written as PNGs under ``build/cli/`` with the
    port's own I/O, ``python3 -m adcensus_torch.cli ... --parity`` run as
    a subprocess (exit 0, its metrics, the two PNGs' shapes, the point
    cloud's lines against the parity map's valid pixels), the same with
@@ -70,7 +67,7 @@ imports nothing of JAX. Phases, each raising on failure:
    mode bitwise equal to ``match(..., gray_mode="host64")`` with the
    in-place median, and which image loader ran.
 
-10. sharded: the sharded layer (``adcensus_torch/parallel/``) at world
+9. sharded: the sharded layer (``adcensus_torch/parallel/``) at world
    size 1: ``distributed.initialize`` on NCCL with a ``file://``
    rendezvous under ``build/``, a (1, 1) mesh, then ``match_sharded`` on
    the rows and disp layouts (roll), the rows layout with the [flags]
@@ -82,6 +79,9 @@ imports nothing of JAX. Phases, each raising on failure:
    the process group is destroyed after. One card runs
    one rank: NCCL takes no two ranks on a card, so the collectives run
    at one rank, and the tests run 2 and 4 ranks on the CPU over gloo.
+
+Per-stage device time is the benchmark's (``stereo_bench/``, read from
+the program's spans), not this script's.
 
 The last two lines of its output are a JSON object of per-kernel numbers
 and ``{"ok": true, "device": {...}}``.
@@ -1050,7 +1050,7 @@ def drive_path(torch, tag, left, right, opts, dev, gt):
           f"{H * W * MAX_D / ms / 1e3:.1f} Mpix*disp/s; density "
           f"{density:.2f} %, bad-2.0 {bad2:.3f} %; equals the plain "
           "pipeline bitwise")
-    return disp, launches, ms
+    return disp, launches
 
 
 def main() -> int:
@@ -1129,19 +1129,15 @@ def main() -> int:
     del inter
 
     # 4. main path
-    disp, launches, ms = drive_path(torch, "main", left, right, opts, dev, gt)
+    disp, launches = drive_path(torch, "main", left, right, opts, dev, gt)
     path_launches = {"main": launches}
     print(f"[main] card {card}")
 
-    # 5. where one match's time goes
-    where_time_goes(torch, left, right, opts, dev, disp, "main", ms)
-
-    # 6. the matmul backend, dense and banded (B5)
+    # 5. the matmul backend, dense and banded (B5)
     for tag in ("matmul", "banded"):
-        disp_b, path_launches[tag], ms_b = drive_path(
+        disp_b, path_launches[tag] = drive_path(
             torch, tag, left, right, opts, dev, gt
         )
-        where_time_goes(torch, left, right, opts, dev, disp_b, tag, ms_b)
         fin, fin_b = torch.isfinite(disp), torch.isfinite(disp_b)
         same = (disp_b == disp) | (~fin & ~fin_b)
         near = (fin & fin_b & ((disp_b - disp).abs() <= 1e-3)) | (
@@ -1151,25 +1147,23 @@ def main() -> int:
               f"bitwise, {100.0 * float(near.float().mean()):.2f} % within "
               "1e-3 (validity included)")
 
-    # 6. [flags]: the in-place median (M1) and discontinuity adjustment (M2)
+    # 5. [flags]: the in-place median (M1) and discontinuity adjustment (M2)
     opts_flags = ADCensusOptions(max_disparity=MAX_D, **FLAGS)
-    disp_f, path_launches["flags"], ms_f = drive_path(
+    disp_f, path_launches["flags"] = drive_path(
         torch, "flags", left, right, opts_flags, dev, gt)
-    where_time_goes(torch, left, right, opts_flags, dev, disp_f, "flags",
-                    ms_f)
     print(f"[flags] changes {int((disp_f != disp).sum())} of {H * W} pixels "
           "of [main]'s disparity")
 
-    # 7. the batched pipeline, each group a CUDA graph replay
+    # 6. the batched pipeline, each group a CUDA graph replay
     drive_batched(torch, dev, opts, opts_flags, path_launches, card)
 
-    # 8. the mixed-shape pipeline: Wood2-size and Cone-size in one graph
+    # 7. the mixed-shape pipeline: Wood2-size and Cone-size in one graph
     drive_hetero(torch, dev, left, right, opts, path_launches, card)
 
-    # 9. the CLI in parity mode, as a user runs it
+    # 8. the CLI in parity mode, as a user runs it
     drive_cli(torch, dev, left_np, right_np, gt, card)
 
-    # 10. the sharded layer at world size 1 on NCCL
+    # 9. the sharded layer at world size 1 on NCCL
     drive_sharded(torch, dev, left, right, {"main": opts, "matmul": opts,
                                             "flags": opts_flags},
                   path_launches, card)
@@ -1252,7 +1246,7 @@ def print_call_profile(torch, tag, ms, pairs, fn):
 
 
 def drive_batched(torch, dev, opts, opts_flags, path_launches, card):
-    """Phase 7 on the [main], [banded] and [flags] paths (the last with
+    """Phase 6 on the [main], [banded] and [flags] paths (the last with
     ``opts_flags``): 8 Cone-size pairs through match_batched_device, each
     group one CUDA graph replay. Raises unless every output is bitwise
     match_device on its pair and the capture launched g times what one
@@ -1328,24 +1322,11 @@ def drive_batched(torch, dev, opts, opts_flags, path_launches, card):
         print_call_profile(torch, f"batched {tag}", graph_ms[0], BATCH,
                            lambda: pipeline.match_batched_device(
                                lefts, rights, opts, **kwargs))
-        if tag == "main":  # the same group on one stream, once
-            def one_stream():
-                return pipeline._match_stacks(
-                    (lefts, rights), opts, dev, g, cross_backend, agg_impl,
-                    branches=False)
-            _, _, one_held = first_call_memory(torch, dev, one_stream)
-            one_ms = host_ms(torch, one_stream)
-            print(f"[batched {tag}] group of {g} captured on one stream: "
-                  f"median {one_ms[0] / BATCH:.3f} ms a pair (min "
-                  f"{one_ms[1] / BATCH:.3f}, max {one_ms[2] / BATCH:.3f}); "
-                  f"the graph holds {one_held / 2**20:.1f} MiB")
-            print_call_profile(torch, f"batched {tag} one stream", one_ms[0],
-                               BATCH, one_stream)
     graphs.clear()
 
 
 def drive_hetero(torch, dev, left, right, opts, path_launches, card):
-    """Phase 8: a Wood2-size pair at D=128 and the Cone-size pair in one
+    """Phase 7: a Wood2-size pair at D=128 and the Cone-size pair in one
     match_hetero_device graph, each output bitwise match_device on its
     pair, the capture's launches twice one [main] match's."""
     from adcensus_torch.config import ADCensusOptions
@@ -1411,7 +1392,7 @@ def run_cli(args):
 
 
 def drive_cli(torch, dev, left_np, right_np, gt, card):
-    """Phase 9: the Cone-size pair as PNGs through the CLI's parity mode
+    """Phase 8: the Cone-size pair as PNGs through the CLI's parity mode
     in a subprocess, the same with --timing, and cli.run_pair in parity
     mode in process, bitwise equal to match(..., gray_mode="host64") with
     the in-place median."""
@@ -1480,7 +1461,7 @@ def drive_cli(torch, dev, left_np, right_np, gt, card):
 
 
 def drive_sharded(torch, dev, left, right, path_opts, path_launches, card):
-    """Phase 10: ``match_sharded`` and ``match_sharded_batched`` at world
+    """Phase 9: ``match_sharded`` and ``match_sharded_batched`` at world
     size 1 on NCCL, each bitwise ``match_device`` with the same launches
     a match, and ms a match beside ``match_device``'s in turns. A failed
     NCCL start or any mismatch raises; nothing falls back."""
@@ -1569,31 +1550,6 @@ def drive_sharded(torch, dev, left, right, path_opts, path_launches, card):
         dist.destroy_process_group()
 
 
-def where_time_goes(torch, left, right, opts, dev, expect, tag, ms):
-    """Print path ``tag``'s stage breakdown and device profile; ``ms`` is
-    its median match time."""
-    from adcensus_torch.stages import pipeline
-
-    stage_ms = stage_breakdown(torch, left, right, opts, expect, tag)
-    print(f"[stages {tag}] "
-          + ", ".join(f"{k} {v:.3f} ms" for k, v in stage_ms.items()))
-    cross_backend, agg_impl, _ = PATHS[tag]
-    prof = device_profile(torch, lambda: pipeline.match_device(
-        left, right, opts, device=dev, cross_backend=cross_backend,
-        agg_impl=agg_impl))
-    if prof is None:
-        print(f"[profile {tag}] not measured: the profiler recorded no "
-              "device activity")
-        return
-    busy_ms, top, hand, _ = prof
-    print(f"[profile {tag}] device busy {busy_ms:.3f} ms of the {ms:.3f} ms "
-          f"median match ({100.0 * (1.0 - busy_ms / ms):.1f} % idle); "
-          "by kernel: "
-          + "; ".join(f"{n} {t:.3f} ms x{c}" for n, t, c in top))
-    print(f"[profile {tag}] hand-written kernels: "
-          + "; ".join(f"{n} {t:.4f} ms x{c}" for n, (t, c) in hand.items()))
-
-
 def device_profile(torch, fn, top_n: int = 12):
     """Device time of one ``fn()`` (after a warm-up call) from
     torch.profiler: the union of its kernels' intervals (ms), the
@@ -1635,61 +1591,6 @@ def device_profile(torch, fn, top_n: int = 12):
         hand[kernel] = (sum(t for t, _ in runs), sum(c for _, c in runs))
     return (busy_us / 1e3, [(n[:60], t, c) for n, (t, c) in top], hand,
             call_ms)
-
-
-def stage_breakdown(torch, left, right, opts, expect, tag="main"):
-    """CUDA-event time of each stage of one match on path ``tag``, in
-    match_core's order; the chained result must equal ``expect``."""
-    from adcensus_torch.stages import aggregate, arms, cost, refine, scanline, wta
-
-    cross_backend, agg_impl, _ = PATHS[tag]
-    marks = []
-
-    def mark(name):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        marks.append((name, ev))
-
-    for _ in range(2):  # the second run is the timed one
-        marks.clear()
-        mark("start")
-        gl, gr = cost.compute_gray(left), cost.compute_gray(right)
-        cen_l = cost.census_transform_9x7(gl)
-        cen_r = cost.census_transform_9x7(gr)
-        vol = cost.compute_cost_volume(left, right, cen_l, cen_r, opts)
-        mark("cost")
-        a = arms.build_arms(left, opts)
-        mark("arms")
-        vol = aggregate.aggregate(vol, a, opts, cross_backend=cross_backend,
-                                  agg_impl=agg_impl)
-        mark("aggregate")
-        vol = scanline.scanline_optimize(vol, left, right, opts)
-        mark("scanline")
-        dl, dr = wta.wta_left(vol, opts), wta.wta_right(vol, opts)
-        mark("wta")
-        disp, occl, mism = refine.outlier_detection(dl, dr, opts)
-        mark("lr_check")
-        disp = refine.iterative_region_voting(
-            disp, a, occl, mism, opts, cross_backend=cross_backend
-        )
-        mark("voting")
-        disp = refine.proper_interpolation(disp, left, occl, mism, opts)
-        mark("interpolation")
-        if opts.do_discontinuity_adjustment:
-            disp = refine.depth_discontinuity_adjustment(disp, vol, opts)
-        mark("discontinuity")
-        if opts.exact_median:
-            disp = refine.median_filter_3x3_inplace(disp)
-        else:
-            disp = refine.median_filter_3x3(disp)
-        mark("median")
-        torch.cuda.synchronize()
-    if not torch.equal(disp.view(torch.int32), expect.view(torch.int32)):
-        raise AssertionError(f"[{tag}] stage chain differs from match_device")
-    return {
-        name: prev.elapsed_time(ev)
-        for (_, prev), (name, ev) in zip(marks, marks[1:])
-    }
 
 
 if __name__ == "__main__":

@@ -269,12 +269,11 @@ def test_group_size_on_the_card_uses_its_budget_and_backend():
 def test_graph_cache_is_a_small_lru(monkeypatch):
     """The cache's bookkeeping, with the capture stubbed out: a hit
     captures nothing and moves its key to the end, a miss past
-    CACHE_SIZE drops the least recently used graph, the stream mode is
-    part of the key, and clear() drops all."""
+    CACHE_SIZE drops the least recently used graph, and clear() drops
+    all."""
     made = []
 
-    def fake_capture(device, make_buffers, run_branch, n, warm_up,
-                     branches):
+    def fake_capture(device, make_buffers, run_branch, n, warm_up):
         made.append(n)
         return graphs.GroupGraph(None, *make_buffers(), {})
 
@@ -283,9 +282,8 @@ def test_graph_cache_is_a_small_lru(monkeypatch):
     dev = torch.device("cuda", 0)
     start = graphs.captures
 
-    def get(key, branches=True):
-        return graphs.captured(key, dev, lambda: ((key,), ()), None, 1, (0,),
-                               branches)
+    def get(key):
+        return graphs.captured(key, dev, lambda: ((key,), ()), None, 1, (0,))
 
     first = get("a")
     assert get("a") is first and len(made) == 1
@@ -295,8 +293,7 @@ def test_graph_cache_is_a_small_lru(monkeypatch):
     get("e")  # drops "b"
     assert len(graphs.cached()) == graphs.CACHE_SIZE
     assert [e.inputs[0] for e in graphs.cached()] == ["c", "d", "a", "e"]
-    assert get("a", branches=False) is not first
-    assert graphs.captures - start == len(made) == 6
+    assert graphs.captures - start == len(made) == 5
     graphs.clear()
     assert graphs.cached() == ()
 

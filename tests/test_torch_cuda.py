@@ -1083,9 +1083,9 @@ def test_failed_capture_raises_with_its_stage(dev, monkeypatch):
 
     median = refine.median_filter_3x3
 
-    def syncing_median(disp):
+    def syncing_median(disp, in_image=None):
         disp.sum().item()
-        return median(disp)
+        return median(disp, in_image)
 
     lefts, rights = _stacks(dev, 1)
     graphs.clear()

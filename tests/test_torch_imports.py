@@ -1,6 +1,7 @@
 """The port stands alone: every module of adcensus_torch, and
 chip_smoke.py, imports with JAX made unimportable and loads nothing of
 adcensus_tpu; and no source of the port reads an environment variable."""
+import ast
 import json
 import pathlib
 import subprocess
@@ -49,3 +50,21 @@ def test_port_reads_no_environment_variable():
         text = path.read_text()
         for word in ("environ", "getenv"):
             assert word not in text, f"{path.name} mentions {word}"
+
+
+def test_stages_and_ops_do_not_import_the_sharded_layer():
+    """Arrows point one way, parallel -> stages -> ops: no module under
+    adcensus_torch/stages or adcensus_torch/ops imports
+    adcensus_torch.parallel."""
+    for sub in ("stages", "ops"):
+        for path in sorted((ROOT / "adcensus_torch" / sub).rglob("*.py")):
+            names = []
+            for node in ast.walk(ast.parse(path.read_text())):
+                if isinstance(node, ast.Import):
+                    names += [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names += [node.module] + [
+                        f"{node.module}.{a.name}" for a in node.names]
+            bad = [n for n in names
+                   if n.split(".")[:2] == ["adcensus_torch", "parallel"]]
+            assert not bad, f"{sub}/{path.name} imports {bad}"

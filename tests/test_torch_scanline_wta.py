@@ -65,7 +65,9 @@ def test_scanline_pass_plain_bitwise(scene, axis, forward):
         JaxOptions(**OPTS), axis, forward, use_pallas=False,
     )
     ours = torch_scan.scanline_pass(
-        torch.as_tensor(vol), torch.as_tensor(left), torch.as_tensor(right),
+        torch.as_tensor(vol),
+        torch_scan.distances(torch.as_tensor(left), torch.as_tensor(right),
+                             axis, forward),
         ADCensusOptions(**OPTS), axis, forward,
     )
     np.testing.assert_array_equal(_bits(ours.numpy()), _bits(ref))
@@ -81,7 +83,9 @@ def test_scanline_pass_plain_matches_pallas_interpret(scene):
         JaxOptions(**OPTS), "x", False, use_pallas=True,
     )
     ours = torch_scan.scanline_pass(
-        torch.as_tensor(vol), torch.as_tensor(left), torch.as_tensor(right),
+        torch.as_tensor(vol),
+        torch_scan.distances(torch.as_tensor(left), torch.as_tensor(right),
+                             "x", False),
         ADCensusOptions(**OPTS), "x", False,
     )
     np.testing.assert_array_equal(_bits(ours.numpy()), _bits(ref))
