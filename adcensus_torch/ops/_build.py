@@ -47,6 +47,7 @@ SIGNATURES = {
     "census": (_P, _P, _I, _I, _I, _I, _I, _P),
     "cost_volume": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _P),
+    "wta": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 # kernel name -> its source csrc/<source>.cu, where that is not the name
 SOURCES = {"census": "cost", "cost_volume": "cost"}

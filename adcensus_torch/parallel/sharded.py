@@ -456,9 +456,10 @@ def _tail_rows(vol, left_p, right_p, arms, opts: ADCensusOptions,
 
     # ---- WTA: pad columns behave like out-of-image ----------------------
     with span(WTA):
-        vol = torch.where((cols >= w)[None, None, :], LARGE_FLOAT, vol)
-        disp_l = wta_stage.wta_left(vol, opts)
-        disp_r = wta_stage.wta_right(vol, opts)
+        if opts.do_discontinuity_adjustment and sh.wp > w:
+            # the adjustment reads the volume's pad columns too
+            vol = torch.where((cols >= w)[None, None, :], LARGE_FLOAT, vol)
+        disp_l, disp_r = wta_stage.wta(vol, opts, real_w=w)
     with span(REFINE):
         return refine_stage.multistep_refine(
             disp_l, disp_r, left_p, vol,

@@ -75,8 +75,7 @@ def match_core(
     with span(SCANLINE):
         cost_scan = scan_stage.scanline_optimize(cost_aggr, left, right, opts)
     with span(WTA):
-        disp_left = wta_stage.wta_left(cost_scan, opts)
-        disp_right = wta_stage.wta_right(cost_scan, opts)
+        disp_left, disp_right = wta_stage.wta(cost_scan, opts)
     with span(REFINE):
         refined = refine_stage.multistep_refine(
             disp_left, disp_right, left, cost_scan, arms, opts,

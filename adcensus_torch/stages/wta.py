@@ -10,13 +10,35 @@ asymmetric edge cases:
   (ADCensusStereo.cpp:290-293);
 * zero parabola curvature falls back to the integer disparity;
 * ties break to the smallest disparity (first minimum).
+
+``wta`` computes both views: kernel W1 (``ops/wta.py``, ``csrc/wta.cu``)
+for CUDA tensors, the plain ``wta_left`` and ``wta_right`` for CPU
+tensors.
 """
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 
 from adcensus_torch.config import INVALID_FLOAT, LARGE_FLOAT, ADCensusOptions
-from adcensus_torch.ops.basic import shift2d
+from adcensus_torch.ops import wta as wta_ops
+from adcensus_torch.ops.basic import kernels_for, shift2d
+
+
+def wta(cost: torch.Tensor, opts: ADCensusOptions,
+        real_w: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(D, H, W) volume -> the (H, W) float32 left and right disparity
+    maps. Columns at or beyond ``real_w`` (default W; the sharded layer's
+    padded columns) read as Large_Float for both views."""
+    w = cost.shape[2]
+    real_w = w if real_w is None else real_w
+    if kernels_for(cost):
+        return wta_ops.wta(cost, opts.min_disparity, real_w)
+    if real_w < w:
+        pad = torch.arange(w, device=cost.device) >= real_w
+        cost = torch.where(pad, LARGE_FLOAT, cost)
+    return wta_left(cost, opts), wta_right(cost, opts)
 
 
 def _parabola(best, c_min, c1, c2, opts: ADCensusOptions) -> torch.Tensor:

@@ -225,11 +225,7 @@ def match_staged(
     )
     cost_scan = run(SCANLINE, scan_stage.scanline_optimize, cost_aggr,
                     left_d, right_d, opts)
-    disp_l, disp_r = run(
-        WTA,
-        lambda c: (wta_stage.wta_left(c, opts), wta_stage.wta_right(c, opts)),
-        cost_scan,
-    )
+    disp_l, disp_r = run(WTA, lambda c: wta_stage.wta(c, opts), cost_scan)
     disp = run(
         REFINE,
         lambda *a: refine_stage.multistep_refine(

@@ -7,7 +7,7 @@ CUDA card, ``nvidia-smi`` and ``nvcc`` (the kernels are built from
 imports nothing of JAX. Phases, each raising on failure:
 
 1. device: the card's name and power limit;
-2. build: the nine CUDA kernels (eight libraries), timed;
+2. build: the ten CUDA kernels (nine libraries), timed;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes of the path that runs it and on that path's own inputs,
    bitwise, timed with CUDA events over runs of back-to-back calls
@@ -35,7 +35,9 @@ imports nothing of JAX. Phases, each raising on failure:
    random map and on a striped map whose edges run along whole rows; C1
    (census) on the pair's two grays and C2 (the cost volume) on its images
    and census, as every path runs them, and both also at the KITTI size
-   (375x1242, D = 256) on seeded random images;
+   (375x1242, D = 256) on seeded random images; W1 (winner-take-all,
+   both views) on the pair's cost_scan, and also at the KITTI size and on
+   a D-640 slab of the full-size cell (2632x497) on seeded volumes;
 4. main path: ``match_device`` on a seeded synthetic 375x450 pair with
    d in [0, 64) and default options (the Middlebury Cone size, the roll
    backend), with the launch counts of one match, the match time, bitwise
@@ -112,6 +114,7 @@ BATCH = 8                          # [batched]: pairs of seeds 0 .. BATCH-1
 HALF_GROUP = 4                     # [batched]: the group of two replays
 WOOD2 = (555, 653, 32, 64, 8, 128)  # [hetero]: H, W, d_bg, d_fg, seed, D
 KITTI = (375, 1242, 256)  # C1 and C2 beside the JSON's case: H, W, D
+SLAB640 = (640, 497, 2632)  # W1: a rank's slab of the full-size cell, D H W
 # [flags]: the two flag-gated refinement stages, on the roll backend
 FLAGS = dict(exact_median=True, do_discontinuity_adjustment=True)
 MEDIAN_EXTRA = ((555, 653), (1100, 64))  # M1 beside the JSON's case
@@ -156,29 +159,32 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
     "cost_volume": ("adcensus_torch/csrc/cost.cu",
                     "adcensus_tpu/stages/cost.py:153", "main",
                     "cost_volume_kernel"),
+    # W1 replaces jnp functions, not a Pallas kernel
+    "wta": ("adcensus_torch/csrc/wta.cu", "adcensus_tpu/stages/wta.py:64",
+            "main", "wta_kernel"),
 }
 
 # path -> (cross_backend, agg_impl, launches one match must show: a count,
 # or None for at least one); [flags] runs with FLAGS set. Every path runs
-# C1 on both grays and C2 once.
-COST_LAUNCHES = {"census": 2, "cost_volume": 1}
+# C1 on both grays, C2 once and W1 once.
+SHARED_LAUNCHES = {"census": 2, "cost_volume": 1, "wta": 1}
 PATHS = {
     "main": ("roll", None, {"cross_sum": None, "scanline": None,
                             "region_vote": 10, "ray_interp": 2,
                             "band_mm": 0, "median_inplace": 0, "dda": 0,
-                            **COST_LAUNCHES}),
+                            **SHARED_LAUNCHES}),
     "matmul": ("matmul", None, {"cross_sum": 0, "region_vote": 0,
                                 "band_mm": 0, "scanline": 4,
                                 "ray_interp": 2, "median_inplace": 0,
-                                "dda": 0, **COST_LAUNCHES}),
+                                "dda": 0, **SHARED_LAUNCHES}),
     "banded": ("matmul", "banded", {"cross_sum": 0, "region_vote": 0,
                                     "band_mm": 8, "scanline": 4,
                                     "ray_interp": 2, "median_inplace": 0,
-                                    "dda": 0, **COST_LAUNCHES}),
+                                    "dda": 0, **SHARED_LAUNCHES}),
     "flags": ("roll", None, {"cross_sum": None, "scanline": None,
                              "region_vote": 10, "ray_interp": 2,
                              "band_mm": 0, "median_inplace": 1, "dda": 1,
-                             **COST_LAUNCHES}),
+                             **SHARED_LAUNCHES}),
 }
 
 
@@ -249,7 +255,7 @@ def plain_versions():
     stack = ExitStack()
     for mod in ("ops.cross_sum", "ops.scanline", "ops.region_vote",
                 "ops.interp", "ops.band_mm", "ops.median", "ops.dda",
-                "stages.cost"):
+                "stages.cost", "stages.wta"):
         stack.enter_context(mock.patch(
             f"adcensus_torch.{mod}.kernels_for", lambda t: False
         ))
@@ -364,6 +370,37 @@ def kernel_cases(torch, inter, left, opts):
     cases["dda"], cases["median_inplace"] = flag_cases(torch, inter)
     cases["census"], cases["cost_volume"] = cost_cases(
         torch, "", left, inter["right"], opts)
+    cases["wta"] = [wta_case(torch, "cost_scan", inter["cost_scan"], opts)]
+    return cases
+
+
+def wta_case(torch, label, cost, opts):
+    """W1's case: both views' maps of ``cost``, against the plain
+    wta_left and wta_right. Its bound: the volume read once and the two
+    maps written; two comparisons a cell and view."""
+    from adcensus_torch.stages import wta
+
+    d, h, w = cost.shape
+    return (
+        f"{label} {h}x{w}, D={d}, min_disparity {opts.min_disparity}",
+        lambda: wta.wta(cost, opts),
+        lambda: (wta.wta_left(cost, opts), wta.wta_right(cost, opts)),
+        None, d * h * w * 4 + h * w * 8, d * h * w * 4,
+    )
+
+
+def wta_extra_cases(torch, dev):
+    """W1 beside the JSON's case: at the KITTI size and on a D-640 slab of
+    the full-size cell (SLAB640, 3.35 GB), on seeded uniform volumes."""
+    from adcensus_torch.config import ADCensusOptions
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cases = []
+    for label, (d, h, w) in (("KITTI size, random", (KITTI[2], *KITTI[:2])),
+                             ("D-640 slab, random", SLAB640)):
+        cost = torch.rand((d, h, w), generator=gen, device=dev)
+        cases.append(wta_case(torch, label, cost,
+                              ADCensusOptions(max_disparity=d)))
     return cases
 
 
@@ -1121,6 +1158,8 @@ def main() -> int:
         measure_case(torch, "dda", case)
     for name, case in cost_extra_cases(torch, dev):
         measure_case(torch, name, case)
+    for case in wta_extra_cases(torch, dev):
+        measure_case(torch, "wta", case)
     cost_tables_note(torch, dev, opts)
     for hf, ms, err in dense_matmul_note(torch, inter, opts):
         print(f"[note] dense cross_pass_matmul, "

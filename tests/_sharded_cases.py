@@ -31,6 +31,8 @@ CASES = {
     "rows_negative_min": (ODD, dict(OPTS, min_disparity=-3, max_disparity=5),
                           "rows", "roll", 1, 1),
     "rows_flags": (SIZE, FLAGS, "rows", "roll", 1, 1),
+    # padded columns under discontinuity adjustment, which reads them
+    "rows_flags_odd": (ODD, FLAGS, "rows", "roll", 1, 1),
     "rows_matmul": (SIZE, OPTS, "rows", "matmul", 1, 1),
     "disp": (SIZE, OPTS, "disp", "roll", 1, 1),
     "disp_odd": (ODD, OPTS, "disp", "roll", 1, 1),

@@ -22,7 +22,7 @@ from adcensus_tpu.parallel import mesh as jax_mesh
 from adcensus_tpu.parallel import sharded as jax_sharded
 
 ROWS = ["rows", "rows_odd", "rows_multi_hop", "rows_negative_min",
-        "rows_flags", "rows_matmul"]
+        "rows_flags", "rows_flags_odd", "rows_matmul"]
 WORLDS = (2, 4)
 
 
@@ -85,7 +85,9 @@ def test_rows_bitwise_match_core_on_every_rank(ranks, world, name):
     """Odd shapes take the padded path; rows_multi_hop at 4 ranks has 8
     rows a rank and a 12-row halo; rows_negative_min reads columns
     beyond the image at the right edge; rows_flags has the LR check off
-    and both refinement flags on (kernels M1 and M2's wrappers)."""
+    and both refinement flags on (kernels M1 and M2's wrappers), and
+    rows_flags_odd the same on padded columns, whose volume the
+    adjustment reads masked; elsewhere the WTA masks them itself."""
     outs = [r[name] for r in ranks[world]]
     assert_ranks_bitwise(outs, core(name)[0])
 
