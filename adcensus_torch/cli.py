@@ -200,7 +200,7 @@ def main(argv=None) -> None:
         os.makedirs(os.path.dirname(prefix) or ".", exist_ok=True)
 
     if args.timing or args.dump_stages:
-        from adcensus_torch.utils.profiling import match_staged
+        from adcensus_torch.stages.staged import match_staged
 
         res = match_staged(left, right, opts, cross_backend=cross_backend,
                            dump_path=args.dump_stages, device=device)

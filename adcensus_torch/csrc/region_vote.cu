@@ -12,21 +12,34 @@
 // and (0, 0, 0) at every pixel that is not a target. A null target mask
 // makes every pixel a target.
 //
+// Fill mode (adc_region_vote_fill) runs a whole voting phase in the same
+// launch (stages/refine.py:region_vote_phase). It reads the float32 map
+// instead of the indices: a cell votes where it is finite, at
+// clamp(lround(d) - min_d, 0, D - 1), as ops/region_vote.py:vote_indices
+// rounds. The targets are the pixels of the phase mask whose disparity is
+// not finite, and it writes the phase's map: at a target whose histogram
+// passes max > 0, count > ts and max / count > th (float32, rounded to
+// nearest, as vote_fill divides) the disparity best + min_d, and
+// everywhere else the map's own value. So a phase is one launch in place
+// of 28 small PyTorch operations.
+//
 // Bound on the H100. A voting phase reads the statistics at its targets
-// only (stages/refine.py:apply_vote_fill), and the targets are sparse: on
+// only (ops/region_vote.py:vote_fill), and the targets are sparse: on
 // the Cone-size synthetic pair 7,952 of 168,750 pixels in the first
 // mismatch phase, 1,152 in the first occlusion phase. The work is one pass
 // over the 1-byte target mask and the 12-byte outputs (13 B a pixel,
-// 0.0007 ms at 3.35 TB/s) and one add per region cell of the targets.
+// 0.0007 ms at 3.35 TB/s; in fill mode the 4-byte map read and written,
+// 9 B a pixel) and one add per region cell of the targets.
 // What holds it back is latency, not bytes or adds: the launch, the mask
 // pass, and each target's chain of dependent loads (its arms, its rows'
 // arms, its cells).
 //
 // Design:
 // * A block owns a run of `pixels` consecutive pixels. Each warp reads 32
-//   target bytes at a time, writes (0, 0, 0) at the pixels that are not
-//   targets and appends the targets to a list in shared memory: one
-//   __ballot_sync, one shared atomicAdd a warp and step. A block without
+//   target bytes at a time, writes (0, 0, 0) (fill mode: the map's value)
+//   at the pixels that are not targets and appends the targets to a list
+//   in shared memory: one __ballot_sync, one shared atomicAdd a warp and
+//   step. A block without
 //   targets exits there, so an empty phase costs one pass over the mask
 //   and nothing reads a count back to the host.
 // * A warp takes one target of the list at a time, round robin, into its
@@ -72,13 +85,29 @@ __device__ inline int clamp_arm(int arm, int max_arm, int room) {
   return max(min(min(arm, max_arm), room), 0);
 }
 
+// The 0-based voting index of a finite disparity: C lround (half away
+// from zero) in float32, less min_d, clamped to [0, D).
+__device__ inline int vote_index(float d, int min_d, int D) {
+  const float r = d >= 0.0f ? floorf(d + 0.5f) : ceilf(d - 0.5f);
+  return min(max(static_cast<int>(r) - min_d, 0), D - 1);
+}
+
+// Where the phase's fill reads and writes (fill mode only).
+struct Fill {
+  const float* disp;  // the (H, W) map the phase starts from
+  float* out;         // the (H, W) map it leaves
+  int min_d, ts;
+  float th;
+};
+
+template <bool kFill>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     region_vote_kernel(const int* __restrict__ di,
                        const uint8_t* __restrict__ valid,
                        const int* __restrict__ arms,
                        const uint8_t* __restrict__ target,
-                       int* __restrict__ out, int D, int H, int W,
-                       int max_arm, int pixels) {
+                       int* __restrict__ out, Fill fill, int D, int H,
+                       int W, int max_arm, int pixels) {
   extern __shared__ int smem[];
   __shared__ int n_targets;
   int* list = smem;  // [pixels] target pixel indices
@@ -99,8 +128,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const int i = c + lane;
     const int p = p0 + i;
     const bool in = i < n_here;
-    const bool is_target = in && (target == nullptr || target[p]);
-    if (in && !is_target) {
+    bool is_target = in && (target == nullptr || target[p]);
+    if constexpr (kFill) {
+      const float d = in ? fill.disp[p] : 0.0f;
+      is_target = is_target && !isfinite(d);
+      if (in && !is_target) fill.out[p] = d;
+    } else if (in && !is_target) {
       out_best[p] = 0;
       out_max[p] = 0;
       out_count[p] = 0;
@@ -169,10 +202,16 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
             const int q = __shfl_sync(kFull, first, j) +
                           (kc - __shfl_sync(kFull, start, j));
             if (kc < total) {
-              const int v = di[q];
-              vote[u] = valid[q] &&
-                        static_cast<unsigned>(v) < static_cast<unsigned>(D);
-              dv[u] = v;
+              if constexpr (kFill) {
+                const float d = fill.disp[q];
+                vote[u] = isfinite(d);
+                if (vote[u]) dv[u] = vote_index(d, fill.min_d, D);
+              } else {
+                const int v = di[q];
+                vote[u] = valid[q] && static_cast<unsigned>(v) <
+                                          static_cast<unsigned>(D);
+                dv[u] = v;
+              }
             }
           }
         }
@@ -203,13 +242,50 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const int count = static_cast<int>(
         __reduce_add_sync(kFull, static_cast<unsigned>(sum)));
     if (lane == 0) {
-      out_best[p] = best;
-      out_max[p] = max(max_c, 0);
-      out_count[p] = count;
+      const int max_ht = max(max_c, 0);
+      if constexpr (kFill) {
+        // a target's own disparity is not finite, so an unfilled target
+        // keeps it
+        const bool filled =
+            max_ht > 0 && count > fill.ts &&
+            __fdiv_rn(static_cast<float>(max_ht),
+                      static_cast<float>(count)) > fill.th;
+        fill.out[p] = filled ? static_cast<float>(best + fill.min_d)
+                             : fill.disp[p];
+      } else {
+        out_best[p] = best;
+        out_max[p] = max_ht;
+        out_count[p] = count;
+      }
     }
     // The next target's zeroing writes only this lane's own bins, which it
     // has read above.
   }
+}
+
+// Checks a launch's sizes and geometry and launches the kernel's kFill
+// instance; cudaErrorInvalidValue for what it refuses.
+template <bool kFill>
+int launch(const int* di, const uint8_t* valid, const int* arms,
+           const uint8_t* target, int* out, Fill fill, int D, int H, int W,
+           int max_arm, int pixels, int warps, int smem, void* stream) {
+  if (H < 0 || W < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long hw = static_cast<long long>(H) * W;
+  if (hw == 0) return 0;
+  if (D < 1 || max_arm < 0 || hw >= (1ll << 31) || pixels < 1 ||
+      warps < 1 || warps > kMaxWarps || smem < smem_bytes(pixels, warps, D) ||
+      smem > kMaxSharedBytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        region_vote_kernel<kFill>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  region_vote_kernel<kFill><<<adc_blocks(hw, pixels), warps * 32, smem, s>>>(
+      di, valid, arms, target, out, fill, D, H, W, max_arm, pixels);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -225,21 +301,21 @@ ADC_EXPORT int adc_region_vote(const int* di, const uint8_t* valid,
                                int* out, int D, int H, int W, int max_arm,
                                int pixels, int warps, int smem,
                                void* stream) {
-  if (H < 0 || W < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long hw = static_cast<long long>(H) * W;
-  if (hw == 0) return 0;
-  if (D < 1 || max_arm < 0 || hw >= (1ll << 31) || pixels < 1 ||
-      warps < 1 || warps > kMaxWarps || smem < smem_bytes(pixels, warps, D) ||
-      smem > kMaxSharedBytes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        region_vote_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  region_vote_kernel<<<adc_blocks(hw, pixels), warps * 32, smem, s>>>(
-      di, valid, arms, target, out, D, H, W, max_arm, pixels);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(di, valid, arms, target, out, Fill{}, D, H, W,
+                       max_arm, pixels, warps, smem, stream);
+}
+
+// Fill mode: one voting phase from the float32 map disp to out (another
+// buffer: every target reads the phase's starting map). target is the
+// phase mask (null: every pixel); the geometry and the refusals are
+// adc_region_vote's.
+ADC_EXPORT int adc_region_vote_fill(const float* disp, const int* arms,
+                                    const uint8_t* target, float* out,
+                                    int D, int H, int W, int max_arm,
+                                    int min_d, int ts, float th, int pixels,
+                                    int warps, int smem, void* stream) {
+  if (disp == out) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<true>(nullptr, nullptr, arms, target, nullptr,
+                      Fill{disp, out, min_d, ts, th}, D, H, W, max_arm,
+                      pixels, warps, smem, stream);
 }

@@ -39,6 +39,8 @@ SIGNATURES = {
     "scanline": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _I, _I, _I, _I,
                  _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
     "region_vote": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "region_vote_fill": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I,
+                         _I, _P),
     "ray_interp": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P),
     "band_mm": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -48,13 +50,18 @@ SIGNATURES = {
     "cost_volume": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _P),
     "wta": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "arms": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P),
 }
 # kernel name -> its source csrc/<source>.cu, where that is not the name
-SOURCES = {"census": "cost", "cost_volume": "cost"}
+SOURCES = {"census": "cost", "cost_volume": "cost",
+           "region_vote_fill": "region_vote"}
+# entry point -> the kernel it launches in another mode, where that is not
+# the name: its launches count as that kernel's
+MODES = {"region_vote_fill": "region_vote"}
 
 # Kernel launches since the last reset, by kernel name. Only launch()
 # adds to it; the plain versions never do.
-launches = {name: 0 for name in SIGNATURES}
+launches = {name: 0 for name in SIGNATURES if name not in MODES}
 
 _entries: dict = {}
 _error_string = None
@@ -145,7 +152,8 @@ def entry(name: str, symbol: str, argtypes):
 
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry point (building it on first use),
-    raise on a CUDA error, and count the launch."""
+    raise on a CUDA error, and count the launch (under the kernel that
+    ``MODES`` names, for an entry point of another mode)."""
     fn = build([name])[name]
     err = fn(*args)
     if err != 0:
@@ -153,7 +161,7 @@ def launch(name: str, *args) -> None:
             f"CUDA kernel {name} failed: {_error_string(err).decode()} "
             f"(cudaError {err})"
         )
-    launches[name] += 1
+    launches[MODES.get(name, name)] += 1
 
 
 def check(name: str, t, dtype, shape, device) -> None:

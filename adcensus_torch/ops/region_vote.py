@@ -10,6 +10,11 @@ and runs ``region_vote_stats_plain`` (the one-hot branch of the JAX
 the lowest d. With ``cross_backend="matmul"`` it computes the same
 statistics at every pixel by band matrices (``ops/cross_matmul.py``) on
 either device instead.
+
+``region_vote_fill`` runs a whole voting phase of the roll backend: the
+map's voting indices (``vote_indices``), the statistics at the phase's
+targets and the fill (``vote_fill``), on CUDA as one launch of B3 in its
+fill mode, on the CPU as those three plain steps.
 """
 from __future__ import annotations
 
@@ -19,7 +24,7 @@ from typing import Tuple
 import torch
 
 from adcensus_torch.ops import _build
-from adcensus_torch.ops.basic import check_cross_options, kernels_for
+from adcensus_torch.ops.basic import check_cross_options, kernels_for, lround
 from adcensus_torch.ops.cross_matmul import region_vote_stats_matmul
 from adcensus_torch.ops.cross_sum import cross_pass_plain
 
@@ -149,3 +154,75 @@ def launch_pass(di, valid, arms, d_range, max_arm, target, geometry):
         torch.cuda.current_stream(di.device).cuda_stream,
     )
     return out[0], out[1], out[2]
+
+
+def vote_indices(
+    disp: torch.Tensor, min_d: int, d_range: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rounded 0-based disparity indices, validity mask) of a map for
+    voting (multistep_refiner.cpp:187-197 uses rounded disparities)."""
+    valid = torch.isfinite(disp)
+    di = (
+        lround(torch.where(valid, disp, 0.0)) - min_d
+    ).clamp(0, d_range - 1).to(torch.int32)
+    return di, valid
+
+
+def vote_fill(
+    disp: torch.Tensor,
+    target: torch.Tensor,
+    best: torch.Tensor,
+    max_ht: torch.Tensor,
+    count: torch.Tensor,
+    min_d: int,
+    ts: int,
+    th: float,
+) -> torch.Tensor:
+    """Fill the ``target`` pixels whose region histogram passes the ts/th
+    thresholds (multistep_refiner.cpp:199-214); ``th`` is a float32
+    value."""
+    ratio_ok = (max_ht.to(torch.float32) / count.to(torch.float32)) > th
+    fill = target & (max_ht > 0) & (count > ts) & ratio_ok
+    return torch.where(fill, (best + min_d).to(torch.float32), disp)
+
+
+def region_vote_fill(
+    disp: torch.Tensor,
+    arms: torch.Tensor,
+    phase: torch.Tensor,
+    d_range: int,
+    max_arm: int,
+    min_d: int,
+    ts: int,
+    th: float,
+) -> torch.Tensor:
+    """One voting phase of the roll backend: the (H, W) float32 map with
+    each target filled where its histogram passes ``ts``/``th``. The
+    targets are the pixels of the (H, W) bool ``phase`` mask whose
+    disparity is not finite; every other pixel keeps its value. ``th`` is
+    a float32 value. On CUDA one launch of kernel B3 in its fill mode
+    (into a new map: every target reads the map the phase starts from),
+    bitwise the plain steps it replaces on the CPU."""
+    h, w = disp.shape
+    for name, t, dtype, shape in (
+        ("disp", disp, torch.float32, (h, w)),
+        ("arms", arms, torch.int32, (h, w, 4)),
+        ("phase", phase, torch.bool, (h, w)),
+    ):
+        _build.check(name, t, dtype, shape, disp.device)
+    if not kernels_for(disp):
+        target = phase & ~torch.isfinite(disp)
+        di, valid = vote_indices(disp, min_d, d_range)
+        stats = region_vote_stats_plain(di, valid, arms, d_range, max_arm,
+                                        target)
+        return vote_fill(disp, target, *stats, min_d, ts, th)
+    pixels, warps, smem = region_vote_geometry(int(d_range), h, w)
+    out = torch.empty_like(disp)
+    _build.launch(
+        "region_vote_fill",
+        disp.data_ptr(), arms.data_ptr(), phase.data_ptr(), out.data_ptr(),
+        int(d_range), h, w, int(max_arm), int(min_d), int(ts), float(th),
+        pixels, warps, smem,
+        torch.cuda.current_stream(disp.device).cuda_stream,
+    )
+    return out

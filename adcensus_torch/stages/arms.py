@@ -2,7 +2,9 @@
 
 Port of ``adcensus_tpu/stages/arms.py``. The reference grows each arm with
 a per-pixel break loop (cross_aggregator.cpp:135-269) of at most
-min(L1, 255) steps; as in the JAX package it is a cumulative AND over the
+min(L1, 255) steps. ``build_arms`` runs that loop as kernel A1
+(``ops/arms.py``, ``csrc/arms.cu``) for a CUDA image; for a CPU image,
+``build_arms_plain``: as in the JAX package, a cumulative AND over the
 candidate offsets, here over all offsets of a direction at once.
 """
 from __future__ import annotations
@@ -10,7 +12,8 @@ from __future__ import annotations
 import torch
 
 from adcensus_torch.config import MAX_ARM_LENGTH, ADCensusOptions
-from adcensus_torch.ops.basic import color_dist
+from adcensus_torch.ops import arms as arms_ops
+from adcensus_torch.ops.basic import color_dist, kernels_for
 
 
 def _arm_length(
@@ -79,8 +82,27 @@ def build_arms(
     full_w: int | None = None,
 ) -> torch.Tensor:
     """Per-pixel cross arms on the left image, (H, W, 4) int32 ordered
-    [left, right, top, bottom] (cross_aggregator.cpp:76-86). The slab
-    mode's arguments are ``_arm_length``'s."""
+    [left, right, top, bottom] (cross_aggregator.cpp:76-86): one launch of
+    kernel A1 for a CUDA image, ``build_arms_plain`` for a CPU one. The
+    slab mode's arguments are ``_arm_length``'s."""
+    if kernels_for(left):
+        h, w, _ = left.shape
+        return arms_ops.arms(
+            left, min(opts.cross_L1, MAX_ARM_LENGTH), opts.cross_L2,
+            opts.cross_t1, opts.cross_t2, row_offset,
+            h if full_h is None else full_h, w if full_w is None else full_w)
+    return build_arms_plain(left, opts, row_offset, full_h, full_w)
+
+
+def build_arms_plain(
+    left: torch.Tensor,
+    opts: ADCensusOptions,
+    row_offset: int = 0,
+    full_h: int | None = None,
+    full_w: int | None = None,
+) -> torch.Tensor:
+    """``build_arms`` in plain PyTorch ops: ``_arm_length`` in each
+    direction."""
     slab = (row_offset, full_h, full_w)
     return torch.stack(
         [

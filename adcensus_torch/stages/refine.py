@@ -6,7 +6,7 @@ Port of ``adcensus_tpu/stages/refine.py`` (multistep_refiner.cpp:60-87):
   reference's in-place invalidation on the occlusion/mismatch split.
 * Iterative region voting runs 5 iterations x (mismatch phase, occlusion
   phase) of simultaneous histogram voting (kernel B3,
-  ``ops/region_vote.py``, or band matrices with
+  ``ops/region_vote.py``, one launch a phase, or band matrices with
   ``cross_backend="matmul"``).
 * Proper interpolation marches the 16 rays (kernel B4, ``ops/interp.py``);
   mismatch fills are written before the occlusion search runs.
@@ -42,8 +42,9 @@ from adcensus_torch.ops.cross_matmul import vote_band_masks
 from adcensus_torch.ops.dda import dda, edge_detect  # noqa: F401
 from adcensus_torch.ops.interp import ray_interp
 from adcensus_torch.ops.median import median_inplace
-from adcensus_torch.ops.region_vote import region_vote_stats
+from adcensus_torch.ops import region_vote
 from adcensus_torch.stages.slab import WHOLE, Slab
+from adcensus_torch.utils.profiling import span
 
 
 def _gather_cols(fields, col, ok, defaults):
@@ -122,11 +123,8 @@ def vote_indices(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rounded 0-based disparity indices, validity mask) for voting
     (multistep_refiner.cpp:187-197 uses rounded disparities)."""
-    valid = torch.isfinite(disp)
-    di = (
-        lround(torch.where(valid, disp, 0.0)) - opts.min_disparity
-    ).clamp(0, opts.disp_range - 1).to(torch.int32)
-    return di, valid
+    return region_vote.vote_indices(disp, opts.min_disparity,
+                                    opts.disp_range)
 
 
 def apply_vote_fill(
@@ -139,13 +137,9 @@ def apply_vote_fill(
 ) -> torch.Tensor:
     """Fill ``target`` pixels whose region histogram passes the ts/th
     thresholds (multistep_refiner.cpp:199-214)."""
-    ratio_ok = (
-        max_ht.to(torch.float32) / count.to(torch.float32)
-    ) > f32(opts.irv_th)
-    fill = target & (max_ht > 0) & (count > opts.irv_ts) & ratio_ok
-    return torch.where(
-        fill, (best + opts.min_disparity).to(torch.float32), disp
-    )
+    return region_vote.vote_fill(disp, target, best, max_ht, count,
+                                 opts.min_disparity, opts.irv_ts,
+                                 f32(opts.irv_th))
 
 
 def region_vote_phase(
@@ -157,14 +151,24 @@ def region_vote_phase(
     masks=None,
     slab: Slab = WHOLE,
 ) -> torch.Tensor:
-    """One voting phase. It runs whatever its target, so that nothing is
-    read back to the host: with an empty target it returns ``disp`` bit
-    for bit, and kernel B3 visits the target pixels only. ``masks`` are
-    the matmul backend's prebuilt band matrices. On a ``slab``, ``arms``
-    covers the ``max_arm`` halo the histograms run on."""
+    """One voting phase at the pixels of ``target`` whose disparity is not
+    finite. It runs whatever its target, so that nothing is read back to
+    the host: with no such pixel it returns ``disp`` bit for bit. The
+    roll backend runs the whole phase as one launch of kernel B3, which
+    visits the target pixels only (``region_vote.region_vote_fill``).
+    ``masks`` are the matmul backend's prebuilt band matrices. On a
+    ``slab``, ``arms`` covers the ``max_arm`` halo the histograms run
+    on."""
     max_arm = min(opts.cross_L1, MAX_ARM_LENGTH)
-    di, valid = vote_indices(slab.halo(disp, max_arm), opts)
-    stats = region_vote_stats(
+    halo = slab.halo(disp, max_arm)
+    if cross_backend == "roll":
+        return slab.own(region_vote.region_vote_fill(
+            halo.contiguous(), arms, slab.pad(target, max_arm).contiguous(),
+            opts.disp_range, max_arm, opts.min_disparity, opts.irv_ts,
+            f32(opts.irv_th)), max_arm)
+    target = target & ~torch.isfinite(disp)
+    di, valid = vote_indices(halo, opts)
+    stats = region_vote.region_vote_stats(
         di, valid, arms, opts.disp_range, max_arm, cross_backend, masks,
         target=slab.pad(target, max_arm),
     )
@@ -192,8 +196,7 @@ def iterative_region_voting(
     )
     for _ in range(num_iters):
         for phase_mask in (mismatch, occlusion):
-            target = phase_mask & ~torch.isfinite(disp)
-            disp = region_vote_phase(disp, arms, target, opts,
+            disp = region_vote_phase(disp, arms, phase_mask, opts,
                                      cross_backend, masks, slab)
     return disp
 
@@ -354,7 +357,9 @@ def multistep_refine(
     ``cross_backend`` picks the voting histograms' backend. On a
     ``slab`` the maps and ``cost`` hold the own rows, ``left`` is the
     whole image and ``arms`` covers the rows of a ``max_arm`` halo; the
-    final map reads +inf outside the image."""
+    final map reads +inf outside the image. The adjustment and the
+    in-place median run in spans of their own, ``refine.dda`` and
+    ``refine.median``, opened only where their options are on."""
     out: Dict[str, torch.Tensor] = {}
     disp = disp_left
     occl = torch.zeros_like(disp, dtype=torch.bool)
@@ -374,11 +379,13 @@ def multistep_refine(
         disp = proper_interpolation(disp, left, occl, mism, opts, slab)
         out["after_interpolation"] = disp
     if opts.do_discontinuity_adjustment:
-        disp = depth_discontinuity_adjustment(disp, cost, opts, slab)
+        with span("refine.dda"):
+            disp = depth_discontinuity_adjustment(disp, cost, opts, slab)
         out["after_discontinuity"] = disp
     if opts.exact_median:
-        final = slab.scatter(median_filter_3x3_inplace(
-            slab.crop(slab.gather(disp))))
+        with span("refine.median"):
+            final = slab.scatter(median_filter_3x3_inplace(
+                slab.crop(slab.gather(disp))))
     else:
         final = slab.own(median_filter_3x3(
             slab.halo(disp, 1), slab.halo(slab.in_image, 1)), 1)

@@ -162,12 +162,15 @@ KERNELS = {  # name -> (source, TPU kernel it replaces, path that runs it,
     # W1 replaces jnp functions, not a Pallas kernel
     "wta": ("adcensus_torch/csrc/wta.cu", "adcensus_tpu/stages/wta.py:64",
             "main", "wta_kernel"),
+    # A1 replaces a jnp function, not a Pallas kernel
+    "arms": ("adcensus_torch/csrc/arms.cu", "adcensus_tpu/stages/arms.py:19",
+             "main", "arms_kernel"),
 }
 
 # path -> (cross_backend, agg_impl, launches one match must show: a count,
 # or None for at least one); [flags] runs with FLAGS set. Every path runs
-# C1 on both grays, C2 once and W1 once.
-SHARED_LAUNCHES = {"census": 2, "cost_volume": 1, "wta": 1}
+# C1 on both grays, C2 once, W1 once and A1 once.
+SHARED_LAUNCHES = {"census": 2, "cost_volume": 1, "wta": 1, "arms": 1}
 PATHS = {
     "main": ("roll", None, {"cross_sum": None, "scanline": None,
                             "region_vote": 10, "ray_interp": 2,
@@ -255,7 +258,7 @@ def plain_versions():
     stack = ExitStack()
     for mod in ("ops.cross_sum", "ops.scanline", "ops.region_vote",
                 "ops.interp", "ops.band_mm", "ops.median", "ops.dda",
-                "stages.cost", "stages.wta"):
+                "stages.cost", "stages.wta", "stages.arms"):
         stack.enter_context(mock.patch(
             f"adcensus_torch.{mod}.kernels_for", lambda t: False
         ))
@@ -370,6 +373,7 @@ def kernel_cases(torch, inter, left, opts):
     cases["dda"], cases["median_inplace"] = flag_cases(torch, inter)
     cases["census"], cases["cost_volume"] = cost_cases(
         torch, "", left, inter["right"], opts)
+    cases["arms"] = [arms_case(torch, "", left, opts)]
     cases["wta"] = [wta_case(torch, "cost_scan", inter["cost_scan"], opts)]
     return cases
 
@@ -440,6 +444,22 @@ def cost_cases(torch, label, left, right, opts):
         None, h * w * 22 + d * h * w * 4, d * h * w * 8,
     )
     return censuses, [volume]
+
+
+def arms_case(torch, label, left, opts):
+    """A1's case on an image, as match_core runs it. Its bytes bound: the
+    image read and the arms written (19 B a pixel); about 16 operations a
+    candidate visited (two color distances, three comparisons)."""
+    from adcensus_torch.stages import arms as arms_stage
+
+    h, w, _ = left.shape
+    visited = int(arms_stage.build_arms(left, opts).sum()) + 4 * h * w
+    return (
+        f"{label}{h}x{w}, L1={opts.cross_L1}",
+        lambda: arms_stage.build_arms(left, opts),
+        lambda: arms_stage.build_arms_plain(left, opts),
+        None, h * w * 19, visited * 16,
+    )
 
 
 def cost_tables_note(torch, dev, opts):

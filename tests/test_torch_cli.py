@@ -1,5 +1,5 @@
 """The port's CLI (adcensus_torch/cli.py) and stage timing
-(adcensus_torch/utils/profiling.py) on the CPU, following
+(adcensus_torch/stages/staged.py) on the CPU, following
 tests/test_cli.py: argparse paths, an end-to-end run on tiny synthetic
 PNGs, every tunable flag, the parity mode against ``match(...,
 gray_mode="host64")`` with the in-place median, ``--timing`` and
@@ -18,9 +18,8 @@ import torch
 from adcensus_torch import cli
 from adcensus_torch.config import ADCensusOptions
 from adcensus_torch.io.image import load_image_rgb, save_png
-from adcensus_torch.stages import pipeline
+from adcensus_torch.stages import pipeline, staged
 from adcensus_torch.synthetic import two_layer_pair
-from adcensus_torch.utils import profiling
 from adcensus_tpu.config import ADCensusOptions as JaxOptions
 from adcensus_tpu.stages import cost as jax_cost
 from adcensus_tpu.stages import pipeline as jax_pipeline
@@ -240,7 +239,7 @@ def test_match_staged_equals_match():
     left, right, _ = two_layer_pair(H, W, 2, 5, seed=2)
     opts = ADCensusOptions(max_disparity=MAX_D, exact_median=True,
                            do_discontinuity_adjustment=True)
-    res = profiling.match_staged(left, right, opts, device="cpu",
+    res = staged.match_staged(left, right, opts, device="cpu",
                                  warmup=False)
     assert tuple(res["timings"]) == STAGES == tuple(res["throughput"])
     assert all(t > 0 for t in res["timings"].values())

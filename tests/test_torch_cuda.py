@@ -401,7 +401,7 @@ def test_region_vote_stage_syncs_no_host(dev):
     _, occl, mism = refine.outlier_detection(
         inter["disp_left_raw"], inter["disp_right_raw"], opts)
     args = (inter["after_lr_check"], inter["arms"], occl, mism, opts)
-    _build.build(["region_vote"])
+    _build.build(["region_vote", "region_vote_fill"])
     torch.cuda.synchronize()
     _build.reset_launches()
     torch.cuda.set_sync_debug_mode("error")

@@ -52,19 +52,42 @@ def test_port_reads_no_environment_variable():
             assert word not in text, f"{path.name} mentions {word}"
 
 
+def _imported_names(path):
+    """Every module name that ``path`` imports, with each name taken from
+    a module (``from a.b import c`` gives a.b and a.b.c)."""
+    names = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names += [node.module] + [
+                f"{node.module}.{a.name}" for a in node.names]
+    return names
+
+
+def _imports_of(subs, package):
+    """{file: names of adcensus_torch.<package> it imports} for the
+    files under adcensus_torch/<sub> of ``subs`` that import any."""
+    found = {}
+    for sub in subs:
+        for path in sorted((ROOT / "adcensus_torch" / sub).rglob("*.py")):
+            bad = [n for n in _imported_names(path)
+                   if n.split(".")[:2] == ["adcensus_torch", package]]
+            if bad:
+                found[f"{sub}/{path.name}"] = bad
+    return found
+
+
 def test_stages_and_ops_do_not_import_the_sharded_layer():
     """Arrows point one way, parallel -> stages -> ops: no module under
     adcensus_torch/stages or adcensus_torch/ops imports
     adcensus_torch.parallel."""
-    for sub in ("stages", "ops"):
-        for path in sorted((ROOT / "adcensus_torch" / sub).rglob("*.py")):
-            names = []
-            for node in ast.walk(ast.parse(path.read_text())):
-                if isinstance(node, ast.Import):
-                    names += [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    names += [node.module] + [
-                        f"{node.module}.{a.name}" for a in node.names]
-            bad = [n for n in names
-                   if n.split(".")[:2] == ["adcensus_torch", "parallel"]]
-            assert not bad, f"{sub}/{path.name} imports {bad}"
+    assert _imports_of(("stages", "ops"), "parallel") == {}
+
+
+def test_utils_do_not_import_the_stages():
+    """utils -> stages would close a cycle, as the stages import
+    ``span`` from utils/profiling.py: no module under adcensus_torch/utils
+    imports adcensus_torch.stages or adcensus_torch.parallel."""
+    assert _imports_of(("utils",), "stages") == {}
+    assert _imports_of(("utils",), "parallel") == {}

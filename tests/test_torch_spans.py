@@ -12,7 +12,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from adcensus_torch.config import ADCensusOptions
-from adcensus_torch.stages import pipeline
+from adcensus_torch.stages import pipeline, staged
 from adcensus_torch.stages import wta as wta_stage
 from adcensus_torch.synthetic import two_layer_pair
 from adcensus_torch.utils import profiling
@@ -160,7 +160,7 @@ def test_disparity_with_recording_is_bitwise_without():
 
 def test_match_staged_times_the_stages():
     left, right = _pair()
-    res = profiling.match_staged(left, right, OPTS, device="cpu",
+    res = staged.match_staged(left, right, OPTS, device="cpu",
                                  warmup=False)
     assert tuple(res["timings"]) == profiling.STAGES + ("total",)
     assert tuple(res["throughput"]) == profiling.STAGES + ("total",)
